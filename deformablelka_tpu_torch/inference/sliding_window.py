@@ -1,0 +1,166 @@
+"""Sliding-window volumetric inference with Gaussian blending and mirror TTA.
+
+Port of `deformablelka_tpu/inference/sliding_window.py` for one device:
+nnUNet's step grid (`compute_steps`), the Gaussian importance map, padding
+up to the patch, the 2^k mirror flips run `tta_batch` at a time, softmax
+averaged over the flips, blended into a numerator and a denominator on the
+device, and an argmax on the device whose uint8 result is all that comes
+back to the host. One Python loop over the tiles takes the place of the
+JAX engine's scan, shape buckets and mesh.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+from scipy.ndimage import gaussian_filter
+
+
+def compute_steps(patch_size, image_size, step_size: float):
+    """nnUNet-compatible sliding-window origins per dim (list of lists)."""
+    if not all(i >= j for i, j in zip(image_size, patch_size)):
+        raise ValueError("image smaller than the patch; pad it first")
+    target = [p * step_size for p in patch_size]
+    nsteps = [int(np.ceil((i - p) / t)) + 1
+              for i, p, t in zip(image_size, patch_size, target)]
+    steps = []
+    for dim in range(len(patch_size)):
+        span = image_size[dim] - patch_size[dim]
+        actual = span / (nsteps[dim] - 1) if nsteps[dim] > 1 else 1e13
+        steps.append([int(np.round(actual * i)) for i in range(nsteps[dim])])
+    return steps
+
+
+@functools.lru_cache(maxsize=8)
+def gaussian_importance_map(patch_size: Tuple[int, ...],
+                            sigma_scale: float = 1.0 / 8) -> np.ndarray:
+    """Centre delta filtered with σ = patch·sigma_scale, max 1, zeros
+    replaced by the smallest nonzero value. Cached: do not modify."""
+    tmp = np.zeros(patch_size)
+    tmp[tuple(p // 2 for p in patch_size)] = 1
+    g = gaussian_filter(tmp, [p * sigma_scale for p in patch_size], 0,
+                        mode="constant", cval=0)
+    g = (g / g.max()).astype(np.float32)
+    g[g == 0] = g[g != 0].min()
+    return g
+
+
+def pad_to_min(x: np.ndarray, patch_size) -> Tuple[np.ndarray, list]:
+    """Pad the leading (spatial) dims of x up to patch_size, split evenly,
+    with zeros. Returns the padded array and the slicer that undoes it."""
+    shape = x.shape[:len(patch_size)]
+    new_shape = [max(s, p) for s, p in zip(shape, patch_size)]
+    diff = [n - s for n, s in zip(new_shape, shape)]
+    lo = [d // 2 for d in diff]
+    pads = ([(l, d - l) for l, d in zip(lo, diff)]
+            + [(0, 0)] * (x.ndim - len(shape)))
+    xp = np.pad(x, pads, mode="constant")
+    slicer = [slice(l, l + s) for l, s in zip(lo, shape)]
+    return xp, slicer
+
+
+def tta_combos(mirror_axes, do_mirroring: bool):
+    """The flip combinations in nnUNet's order: () then every non-empty
+    subset of mirror_axes, by bitmask."""
+    combos = [()]
+    if do_mirroring:
+        for m in range(1, 2 ** len(mirror_axes)):
+            combos.append(tuple(a for i, a in enumerate(mirror_axes)
+                                if (m >> i) & 1))
+    return combos
+
+
+def mirror_tta_softmax(apply_fn: Callable, tile: torch.Tensor, mirror_axes,
+                       do_mirroring: bool, tta_batch: int = 1):
+    """Softmax averaged over the flips of one tile, (1, *patch, C) →
+    (*patch, ncls) in float32, `tta_batch` flips per forward."""
+    combos = tta_combos(mirror_axes, do_mirroring)
+    b = max(1, min(int(tta_batch), len(combos)))
+    while len(combos) % b:
+        b -= 1
+
+    def head(logits):
+        if isinstance(logits, (list, tuple)):
+            logits = logits[0]
+        return torch.softmax(logits.float(), dim=-1)
+
+    acc = None
+    for i in range(0, len(combos), b):
+        chunk = combos[i:i + b]
+        batch = torch.cat([torch.flip(tile, [a + 1 for a in c]) if c else tile
+                           for c in chunk]).contiguous()
+        prob = head(apply_fn(batch))
+        prob = sum(torch.flip(prob[j], list(c)) if c else prob[j]
+                   for j, c in enumerate(chunk))
+        acc = prob if acc is None else acc + prob
+    return acc / len(combos)
+
+
+class SlidingWindowInference:
+    """Tiled 3D prediction on one device.
+
+    `apply_fn(x)` maps a (b, *patch, C) float32 tensor to logits
+    (b, *patch, ncls), or to a deep-supervision list whose first entry is
+    used. Volumes are (S1, S2, S3, C) numpy arrays on the host.
+    """
+
+    def __init__(self, apply_fn: Callable, patch_size, num_classes: int,
+                 step_size: float = 0.5, do_mirroring: bool = True,
+                 mirror_axes=(0, 1, 2), use_gaussian: bool = True,
+                 tta_batch: int = 1, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; pass device='cpu' to run "
+                               "on the CPU")
+        self.apply_fn = apply_fn
+        self.patch_size = tuple(patch_size)
+        self.num_classes = num_classes
+        self.step_size = step_size
+        self.do_mirroring = do_mirroring
+        self.mirror_axes = tuple(mirror_axes)
+        self.use_gaussian = use_gaussian
+        self.tta_batch = tta_batch
+
+    def origins(self, padded_shape):
+        steps = compute_steps(self.patch_size, padded_shape, self.step_size)
+        return [(a, b, c) for a in steps[0] for b in steps[1]
+                for c in steps[2]]
+
+    @torch.no_grad()
+    def predict(self, volume: np.ndarray, return_device: bool = False):
+        """Class probabilities (S1, S2, S3, ncls) on the host, padding
+        removed; with `return_device`, the padded device tensor and the
+        crop slicer instead."""
+        data, slicer = pad_to_min(volume.astype(np.float32, copy=False),
+                                  self.patch_size)
+        padded_shape = data.shape[:3]
+        origins = self.origins(padded_shape)
+        if self.use_gaussian and len(origins) > 1:
+            gauss = gaussian_importance_map(self.patch_size)
+        else:
+            gauss = np.ones(self.patch_size, np.float32)
+        dev = self.device
+        data = torch.from_numpy(data).to(dev)
+        gauss = torch.from_numpy(gauss).to(dev)
+        num = torch.zeros(*padded_shape, self.num_classes, device=dev)
+        den = torch.zeros(padded_shape, device=dev)
+        for o in origins:
+            sl = tuple(slice(s, s + p) for s, p in zip(o, self.patch_size))
+            prob = mirror_tta_softmax(self.apply_fn, data[sl][None],
+                                      self.mirror_axes, self.do_mirroring,
+                                      self.tta_batch)
+            num[sl] += prob * gauss[..., None]
+            den[sl] += gauss
+        probs = num / den[..., None]
+        if return_device:
+            return probs, tuple(slicer)
+        return probs.cpu().numpy()[tuple(slicer)]
+
+    def predict_segmentation(self, volume: np.ndarray) -> np.ndarray:
+        """Argmax on the device; only the uint8 labels come to the host."""
+        probs, slicer = self.predict(volume, return_device=True)
+        labels = torch.argmax(probs, dim=-1).to(torch.uint8)
+        return labels.cpu().numpy()[slicer]

@@ -1,0 +1,111 @@
+"""Primitive parameterised layers, channels-last, with torch weight layouts.
+
+Port of `deformablelka_tpu/nn/layers.py`. Parameters are named `weight`
+and `bias` and laid out as torch's own layers lay them out:
+
+  Conv3d.weight        : (Cout, Cin // groups, kd, kh, kw)
+  ConvTranspose.weight : (Cin, Cout, kd, kh, kw)
+  Linear.weight        : (Cout, Cin)
+
+Initialisation draws from the same distributions as the JAX package
+(torch's defaults: U(±1/sqrt(fan_in)) for weight and bias) from an
+explicit `torch.Generator`; see `init_parameters`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from deformablelka_tpu_torch.ops import convs as C
+
+
+def _uniform_(t: torch.Tensor, bound: float, generator) -> None:
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
+
+
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """(Re)initialise every submodule that defines
+    `reset_parameters(generator)`, children before their parent (so a
+    parent may override what a child drew)."""
+    for m in reversed(list(module.modules())):
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)
+
+
+class Conv3d(nn.Module):
+    """3D conv on (B, D, H, W, Cin); `padding` is "same" (MONAI rule),
+    an int or three ints."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding="same", dilation=1, groups: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        ks = C._tuple(kernel_size, 3)
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels // groups, *ks))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def reset_parameters(self, generator=None):
+        bound = 1.0 / math.sqrt(math.prod(self.weight.shape[1:]))
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def forward(self, x):
+        return C.conv3d(x, self.weight, self.bias, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation,
+                        groups=self.groups)
+
+
+class ConvTranspose(nn.Module):
+    """Transposed 3D conv with MONAI's padding rules (output = input ×
+    stride)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride, bias: bool = True):
+        super().__init__()
+        ks = C._tuple(kernel_size, 3)
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, *ks))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def reset_parameters(self, generator=None):
+        # the JAX package takes fan_in = Cin · prod(k) for both
+        bound = 1.0 / math.sqrt(math.prod(self.weight.shape[2:])
+                                * self.weight.shape[0])
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def forward(self, x):
+        return C.conv_transpose(x, self.weight, self.bias, stride=self.stride)
+
+
+class Linear(nn.Module):
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def reset_parameters(self, generator=None):
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+def gelu(x):
+    """Exact (erf) GELU, as torch's nn.GELU()."""
+    return F.gelu(x)

@@ -1,0 +1,207 @@
+"""The hand-written Hopper kernels: their build, binding and wrappers.
+
+`csrc/*.cu` expose `extern "C"` launchers. At first use on a CUDA tensor
+each source is compiled by its own `nvcc` process (all started together)
+for `sm_90a`, the objects are linked into one shared library under
+`deformablelka_tpu_torch/_build/`, named by a hash of the sources and
+flags, and the library is loaded with `ctypes`. nvcc is taken from PATH,
+else from `$CUDA_HOME/bin`.
+
+Each wrapper takes the JAX package's layouts, checks device, dtype, shape
+and contiguity, allocates its output with `torch.empty`, launches on the
+current stream and raises if the launch failed. On a CPU tensor it
+computes the plain PyTorch version instead; on a CUDA tensor it launches
+the kernel or raises, and never falls back. `wrapper.launches` counts the
+kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_conv3d_plain
+from deformablelka_tpu_torch.ops.lka import dw_chain3d as dw_chain3d_plain
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin; "
+                       "the CUDA kernels cannot be built")
+
+
+def _build() -> Path:
+    """Compile every source in parallel and link one shared library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"libdlka_kernels_{h.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        errors = []
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name}:\n{out}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        os.replace(tmp_lib, lib_path)  # atomic against a concurrent build
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built at first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(_build()))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.dlka_deform_conv3d.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        lib.dlka_deform_conv3d.restype = i32
+        lib.dlka_dw_chain3d.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.dlka_dw_chain3d.restype = i32
+        lib.dlka_error_string.argtypes = [i32]
+        lib.dlka_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        msg = library().dlka_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _require(t: torch.Tensor, name: str, shape: tuple, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def deform_conv3d(x, offset, w, bias=None):
+    """3³ deformable conv, stride 1, pad 1, dilation 1, groups 1.
+
+    x (B, D, H, W, Ci), offset (B, D, H, W, 81), w (3, 3, 3, Ci, Co),
+    bias (Co,) or None → (B, D, H, W, Co). Kernel: csrc/deform3d.cu.
+    """
+    if not x.is_cuda:
+        return deform_conv3d_plain(x, offset, w, bias)
+    B, D, H, W, Ci = x.shape
+    Co = w.shape[-1]
+    dev = x.device
+    _require(x, "x", (B, D, H, W, Ci), dev)
+    _require(offset, "offset", (B, D, H, W, 81), dev)
+    _require(w, "w", (3, 3, 3, Ci, Co), dev)
+    if bias is not None:
+        _require(bias, "bias", (Co,), dev)
+    if B * D * H * W >= 2 ** 31:
+        raise ValueError("deform_conv3d kernel: too many voxels for int32 indices")
+    y = torch.empty(B, D, H, W, Co, device=dev, dtype=torch.float32)
+    err = library().dlka_deform_conv3d(
+        x.data_ptr(), offset.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(), y.data_ptr(),
+        B, D, H, W, Ci, Co, _stream())
+    _check(err, "deform_conv3d")
+    deform_conv3d.launches += 1
+    return y
+
+
+deform_conv3d.launches = 0
+
+# dw_chain3d keeps, per channel of its tile of CT, 7 whole H×W planes and
+# 5 haloed input planes in shared memory; CT is the widest that keeps that
+# within 72 KB (three blocks per SM), else 1 channel within the 227 KB a
+# block may hold.
+_CHAIN_SMEM_TARGET = 72 * 1024
+_SMEM_MAX = 232448
+
+
+def chain_channel_tile(H: int, W: int, C: int) -> int:
+    plane_bytes = 4 * (7 * H * W + 5 * (H + 4) * (W + 4))
+    for ct in (32, 16, 8, 4, 2):
+        if C % ct == 0 and plane_bytes * ct <= _CHAIN_SMEM_TARGET:
+            return ct
+    if plane_bytes <= _SMEM_MAX:
+        return 1
+    raise ValueError(f"dw_chain3d kernel: an {H}×{W} plane does not fit "
+                     "shared memory")
+
+
+def dw_chain3d(x, w_dw, b_dw, w_dil, b_dil):
+    """dw5³ (pad 2) + bias → dw7³ dilation 3 (pad 9) + bias, fused.
+
+    x (B, D, H, W, C), w_dw (5, 5, 5, 1, C), b_dw (C,), w_dil (7, 7, 7, 1,
+    C), b_dil (C,) → (B, D, H, W, C). Kernel: csrc/dw_chain3d.cu.
+    """
+    if not x.is_cuda:
+        return dw_chain3d_plain(x, w_dw, b_dw, w_dil, b_dil)
+    B, D, H, W, C = x.shape
+    dev = x.device
+    _require(x, "x", (B, D, H, W, C), dev)
+    _require(w_dw, "w_dw", (5, 5, 5, 1, C), dev)
+    _require(b_dw, "b_dw", (C,), dev)
+    _require(w_dil, "w_dil", (7, 7, 7, 1, C), dev)
+    _require(b_dil, "b_dil", (C,), dev)
+    ct = chain_channel_tile(H, W, C)
+    y = torch.empty_like(x)
+    err = library().dlka_dw_chain3d(
+        x.data_ptr(), w_dw.data_ptr(), b_dw.data_ptr(), w_dil.data_ptr(),
+        b_dil.data_ptr(), y.data_ptr(), B, D, H, W, C, ct, _stream())
+    _check(err, "dw_chain3d")
+    dw_chain3d.launches += 1
+    return y
+
+
+dw_chain3d.launches = 0
+
+WRAPPERS = (deform_conv3d, dw_chain3d)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0

@@ -1,0 +1,37 @@
+"""The port imports torch, never JAX nor anything of the JAX package."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in (ROOT / "deformablelka_tpu_torch").rglob("*.py"))
+
+CHECK = """
+import importlib, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.startswith("jaxlib.") or m == "deformablelka_tpu"
+             or m.startswith("deformablelka_tpu."))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_modules_are_listed():
+    assert "deformablelka_tpu_torch.ops.kernels" in MODULES
+    assert len(MODULES) >= 15
+
+
+@pytest.mark.parametrize("names", [MODULES, ["chip_smoke"]],
+                         ids=["package", "chip_smoke"])
+def test_import_loads_neither_jax_nor_the_jax_package(names):
+    r = subprocess.run([sys.executable, "-c", CHECK, *names], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -1,0 +1,98 @@
+"""The hand kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: each test skips without a CUDA card (decided inside the
+test, so every worker collects the same tests). On the card:
+`python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
+(`tests/conftest.py` imports JAX). TF32 is off on
+both sides. Tolerance: max|kernel − plain| ≤ 1e-4 · max(1, max|plain|),
+f32 sums in another order.
+"""
+
+import pytest
+import torch
+
+from deformablelka_tpu_torch.models.dlka_former import dlka_former_synapse
+from deformablelka_tpu_torch.ops import kernels
+from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_plain
+from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _close(got, ref):
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-4 * max(1.0, ref.abs().max().item()), err
+
+
+@pytest.mark.parametrize("B,S,Ci,Co", [(8, 32, 32, 32), (8, 16, 64, 64),
+                                       (8, 8, 128, 128), (8, 4, 256, 256),
+                                       (1, (3, 5, 7), 5, 3), (2, (6, 4, 9), 40, 70)])
+def test_deform_kernel_matches_plain(cuda, B, S, Ci, Co):
+    D, H, W = S if isinstance(S, tuple) else (S,) * 3
+    x = torch.randn(B, D, H, W, Ci, device="cuda", generator=cuda)
+    off = (torch.rand(B, D, H, W, 81, device="cuda", generator=cuda) * 2 - 1) * 2.5
+    w = torch.randn(3, 3, 3, Ci, Co, device="cuda", generator=cuda) / (27 * Ci) ** 0.5
+    b = torch.randn(Co, device="cuda", generator=cuda)
+    before = kernels.deform_conv3d.launches
+    got = kernels.deform_conv3d(x, off, w, b)
+    assert kernels.deform_conv3d.launches == before + 1
+    _close(got, deform_plain(x, off, w, b))
+    _close(kernels.deform_conv3d(x, off, w), deform_plain(x, off, w))
+
+
+@pytest.mark.parametrize("B,S,C", [(8, 32, 32), (8, 16, 64), (8, 8, 128),
+                                   (8, 4, 256), (1, (5, 13, 7), 3),
+                                   (2, (20, 11, 30), 6)])
+def test_chain_kernel_matches_plain(cuda, B, S, C):
+    D, H, W = S if isinstance(S, tuple) else (S,) * 3
+    x = torch.randn(B, D, H, W, C, device="cuda", generator=cuda)
+    w5 = torch.randn(5, 5, 5, 1, C, device="cuda", generator=cuda) / 125 ** 0.5
+    w7 = torch.randn(7, 7, 7, 1, C, device="cuda", generator=cuda) / 343 ** 0.5
+    b5 = torch.randn(C, device="cuda", generator=cuda)
+    b7 = torch.randn(C, device="cuda", generator=cuda)
+    before = kernels.dw_chain3d.launches
+    got = kernels.dw_chain3d(x, w5, b5, w7, b7)
+    assert kernels.dw_chain3d.launches == before + 1
+    _close(got, chain_plain(x, w5, b5, w7, b7))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(1, 4, 4, 4, 8, device="cuda")
+    off = torch.zeros(1, 4, 4, 4, 81, device="cuda")
+    w = torch.zeros(3, 3, 3, 8, 8, device="cuda")
+    with pytest.raises(ValueError):
+        kernels.deform_conv3d(x.transpose(1, 2), off, w)
+    with pytest.raises(TypeError):
+        kernels.deform_conv3d(x.double(), off, w)
+    with pytest.raises(ValueError):
+        kernels.deform_conv3d(x, off[..., :27], w)
+    with pytest.raises(ValueError):
+        kernels.deform_conv3d(x, off, w.cpu())
+    w5, w7, b = (torch.zeros(5, 5, 5, 1, 8, device="cuda"),
+                 torch.zeros(7, 7, 7, 1, 8, device="cuda"),
+                 torch.zeros(8, device="cuda"))
+    with pytest.raises(ValueError):
+        kernels.dw_chain3d(x, w5, b, w5, b)
+
+
+def test_model_on_the_card_matches_the_cpu_and_counts_launches(cuda):
+    img = (16, 32, 32)
+    gpu = dlka_former_synapse(14, do_ds=False, img_size=img, seed=0)
+    cpu = dlka_former_synapse(14, do_ds=False, img_size=img, seed=0, device="cpu")
+    x = torch.randn(2, *img, 1)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = gpu(x.cuda()).cpu()
+        ref = cpu(x)
+    assert kernels.deform_conv3d.launches == 21
+    assert kernels.dw_chain3d.launches == 21
+    _close(got, ref)
