@@ -22,8 +22,30 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    seeded 96×192×160 volume with patch 64×128×128, step 0.5, Gaussian
    blending, 8-flip mirror TTA in one batch and argmax on the device.
    It prints the wall time, the peak device memory, each kernel's launch
-   count (must be 21 blocks × 8 tiles = 168) and the share of voxels
-   whose label agrees with the same run through the plain versions.
+   count (must be 21 blocks × 8 tiles = 168 of each forward kernel and no
+   backward) and the share of voxels whose label agrees with the same run
+   through the plain versions;
+5. the deform backward kernel against its plain version (autograd of the
+   plain forward) at the four stage shapes with batch 2, offsets uniform
+   in ±2.5, TF32 off: max|err| of dx, d-offset and dw against the stated
+   tolerance, and the kernel's, the plain version's and the bound's times
+   (no PyTorch call computes a deformable-conv backward, so no library
+   time);
+6. the small training step, CUDA against CPU: one step of the training
+   path at img_size (16, 32, 32), batch 2, deep supervision, remat, from
+   the same init and batch on both: loss, grad norm, the gradients tensor
+   by tensor and as a whole, and the parameters after the step, each
+   against its stated tolerance, beside the CPU step with itself on an
+   image scaled by 1 + 1e-7 (a noise floor);
+7. the training path (`train_path.py`, the step of `bench.py:59-106`) at
+   full size: 3 steps, printing s/step (median of steps 2-3), peak device
+   memory, the losses (finite) and the launches per step (42 deform and
+   42 chain forwards, 21 deform backwards with remat); then step 1 again
+   from the same init through the plain versions: the loss within 1e-5
+   relative, every parameter tensor's gradient within ‖Δg‖ ≤ 1.5e-2·‖g‖ and
+   the whole gradient within 1e-3 (beside the same comparison of the plain
+   step with itself on an image scaled by 1 + 1e-7: its noise floor), all
+   gradients finite and every `conv_offset.weight` gradient nonzero.
 
 Then one JSON line of the kernels' numbers and, last, the contract line
 {"ok": true, "device": {...}}. Any failure exits nonzero before it.
@@ -35,24 +57,26 @@ import json
 import subprocess
 import sys
 import time
-from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deformablelka_tpu_torch import main_path
+from deformablelka_tpu_torch import main_path, train_path
+from deformablelka_tpu_torch.grad_floor import plain_versions
 from deformablelka_tpu_torch.main_path import BLOCKS, PATCH, TILES, VOLUME
 from deformablelka_tpu_torch.models.dlka_former import dlka_former_synapse
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d
 from deformablelka_tpu_torch.ops import kernels
 from deformablelka_tpu_torch.ops.convs import to_ncdhw
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_plain
+from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward as deform_bwd_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
 
 # (spatial size, channels, transformer blocks at that stage) on the main path
 STAGES = ((32, 32, 6), (16, 64, 6), (8, 128, 6), (4, 256, 3))
 BATCH = 8
+TRAIN_BATCH = train_path.BATCH
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 REL_TOL = 1e-4              # max|kernel - plain| ≤ REL_TOL · max(1, max|plain|)
@@ -209,22 +233,21 @@ def phase_main_path():
     seg = sw.predict_segmentation(vol)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 4 main path: predict_segmentation {VOLUME} patch {PATCH}, "
           f"{TILES} tiles x 8 flips: {wall:.3f} s wall, peak device memory "
           f"{peak / 2**30:.3f} GiB, launches {launches}", flush=True)
-    expected = BLOCKS * TILES
-    for name, n in launches.items():
-        if n != expected:
-            fail(f"{name} launched {n} times on the main path, expected {expected}")
+    expected = {"deform_conv3d": BLOCKS * TILES, "dw_chain3d": BLOCKS * TILES,
+                "deform_conv3d_bwd": 0}
+    if launches != expected:
+        fail(f"main path launches {launches}, expected {expected}")
     if seg.shape != VOLUME or seg.dtype != np.uint8 or seg.max() >= 14:
         fail(f"bad segmentation {seg.shape} {seg.dtype}")
 
     hooks = [m.conv_offset.register_forward_hook(record)
              for m in model.modules() if isinstance(m, DeformConvPack3d)]
-    with mock.patch.object(kernels, "deform_conv3d", deform_plain), \
-            mock.patch.object(kernels, "dw_chain3d", chain_plain):
+    with plain_versions():
         t0 = time.perf_counter()
         seg_plain = sw.predict_segmentation(vol)
         torch.cuda.synchronize()
@@ -245,24 +268,220 @@ def phase_main_path():
     return launches, wall
 
 
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
+
+
+def _rel_close(name, got, ref, report):
+    err = (got - ref).abs().max().item()
+    tol = REL_TOL * max(1.0, ref.abs().max().item())
+    report[name] = (err, tol)
+    return err <= tol
+
+
+def phase_backward_kernel():
+    """The deform backward kernel against autograd of the plain forward."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    rows = []
+    for S, C, sites in STAGES:
+        V, B = S ** 3, TRAIN_BATCH
+        x = torch.randn(B, S, S, S, C, device=dev, generator=g)
+        off = (torch.rand(B, S, S, S, 81, device=dev, generator=g) * 2 - 1) * 2.5
+        w = torch.randn(3, 3, 3, C, C, device=dev, generator=g) / (27 * C) ** 0.5
+        gy = torch.randn(B, S, S, S, C, device=dev, generator=g)
+        ref = deform_bwd_plain(x, off, w, gy)
+        got = kernels.deform_conv3d_bwd(x, off, w, gy)
+        torch.cuda.synchronize()
+        report = {}
+        ok = all([_rel_close(n, a, r, report)
+                  for n, a, r in zip(("dx", "doff", "dw"), got, ref)])
+        ms = timed_ms(lambda: kernels.deform_conv3d_bwd(x, off, w, gy), 10)
+        pms = timed_ms(lambda: deform_bwd_plain(x, off, w, gy), 3, warmup=1)
+        # read x, offsets, w, g once; write dx, d-offset, dw once. Per voxel
+        # and tap: the two channel mixes (dsamp = g·w_kᵀ, dw += sampᵀ·g),
+        # 4·Ci·Co, plus 86·Ci for the sample's blend, the dx scatter and
+        # the offset gradient's corner differences
+        n_bytes = 4 * (B * V * (C + 81 + C) + 27 * C * C + B * V * (C + 81) + 27 * C * C)
+        flops = B * V * 27 * (4 * C * C + 86 * C)
+        bnd = bound_ms(n_bytes, flops)
+        bms, by = _bound(bnd)
+        err = max(e for e, _ in report.values())
+        rows.append(dict(S=S, C=C, sites=sites, err=err, ms=ms, plain_ms=pms,
+                         lib_ms=None, **bnd))
+        errs = ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in report.items())
+        print(f"phase 5 deform_conv3d_bwd B={B} {S}^3 C={C}: max|err| {errs}; "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              "library none (no PyTorch call computes this backward)", flush=True)
+        if not ok:
+            fail(f"deform_conv3d_bwd disagrees with its plain version at {S}^3 C={C}")
+        del x, off, w, gy, ref, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+SMALL_IMG = (16, 32, 32)
+LOSS_RTOL = 1e-5        # loss, kernels vs plain / CUDA vs CPU, relative
+NORM_RTOL = 1e-4        # grad norm, CUDA vs CPU, relative
+# Gradients are compared tensor by tensor, ‖Δg‖ ≤ rtol · ‖g‖, and as a
+# whole; a tensor without its gradient, or with part of it, is off by ~1.
+# Two correct f32 runs of one step differ too: when the forward's rounding
+# changes (the image scaled by 1 + 1e-7), single tensors move by up to
+# 4.4e-3 at full size and 7.7e-4 at 16×32×32, the whole gradient by up to
+# 1.0e-4 and 5.0e-4 (`python -m deformablelka_tpu_torch.grad_floor`, seeds
+# 0-2, H100 80GB HBM3). Each limit is over three times the largest reading.
+GRAD_TENSOR_RTOL = 1.5e-2  # phase 7, full size, kernels vs plain versions
+GRAD_RTOL = 1e-3           # phase 7, the whole gradient
+SMALL_GRAD_TENSOR_RTOL = 3e-3  # phase 6, CUDA vs CPU
+SMALL_GRAD_RTOL = 2e-3
+PARAM_ATOL = 1e-5        # phase 6, the parameters after the step
+
+
+def grad_rel(grads, ref):
+    """The worst per-tensor ‖Δg‖/‖g‖ with its tensor, and the whole one."""
+    rel = {n: (grads[n] - ref[n]).norm().item() / max(ref[n].norm().item(), 1e-30)
+           for n in ref}
+    worst = max(rel, key=rel.get)
+    flat = lambda g: torch.cat([t.flatten() for t in g.values()])
+    return worst, rel[worst], ((flat(grads) - flat(ref)).norm() / flat(ref).norm()).item()
+
+
+def phase_small_train_step():
+    """One training step on the card against the same step on the CPU."""
+    out = {}
+    for run, dev, scale in (("cuda", "cuda", 1.0), ("cpu", "cpu", 1.0),
+                            ("cpu, image x (1 + 1e-7)", "cpu", 1 + 1e-7)):
+        path = train_path.build(seed=0, img_size=SMALL_IMG, device=dev)
+        path.image.mul_(scale)
+        m = train_path.step(path)
+        params = dict(path.model.named_parameters())
+        out[run] = (float(m["loss"]), float(m["grad_norm"]),
+                    {n: p.detach().cpu() for n, p in params.items()},
+                    {n: p.grad.detach().cpu() for n, p in params.items()})
+    (lk, nk, pk, gk), (lc, nc, pc, gc) = out["cuda"], out["cpu"]
+    worst, worst_rel, whole = grad_rel(gk, gc)
+    dp = max((pk[n] - pc[n]).abs().max().item() for n in pc)
+    floor_worst, floor_rel, floor_whole = grad_rel(out["cpu, image x (1 + 1e-7)"][3], gc)
+    print(f"phase 6 noise floor, CPU step with the image x (1 + 1e-7) vs CPU: "
+          f"worst per-tensor ‖Δg‖/‖g‖ {floor_rel:.3e} ({floor_worst}), whole "
+          f"gradient {floor_whole:.3e}", flush=True)
+    print(f"phase 6 small train step {SMALL_IMG} B={TRAIN_BATCH}, deep "
+          f"supervision, remat: loss CUDA {lk:.7f} CPU {lc:.7f} (rtol "
+          f"{LOSS_RTOL}), grad norm CUDA {nk:.6f} CPU {nc:.6f} (rtol {NORM_RTOL}); "
+          f"gradients over {len(gc)} tensors: worst ‖Δg‖/‖g‖ {worst_rel:.3e} "
+          f"({worst}; max {SMALL_GRAD_TENSOR_RTOL}), whole {whole:.3e} (max "
+          f"{SMALL_GRAD_RTOL}); parameters after the step max|Δ| {dp:.3e} (max "
+          f"{PARAM_ATOL})", flush=True)
+    if not (abs(lk - lc) <= LOSS_RTOL * abs(lc) and abs(nk - nc) <= NORM_RTOL * nc
+            and worst_rel <= SMALL_GRAD_TENSOR_RTOL and whole <= SMALL_GRAD_RTOL
+            and dp <= PARAM_ATOL):
+        fail("the training step on the card disagrees with the CPU")
+
+
+def phase_train_path():
+    """The training path at full size, then step 1 through the plain versions."""
+    path = train_path.build(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics, per_step = [], [], []
+    grads_k = None
+    for i in range(3):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m = train_path.step(path)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append(launch_counts())
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0:
+            grads_k = {n: p.grad.detach().clone()
+                       for n, p in path.model.named_parameters()}
+    peak = torch.cuda.max_memory_allocated()
+    s_step = float(np.median(times[1:]))
+    print(f"phase 7 training path B={TRAIN_BATCH} patch {train_path.PATCH}, remat, "
+          f"deep supervision: {s_step:.4f} s/step (median of steps 2-3; steps "
+          f"{', '.join(f'{t:.4f}' for t in times)} s), peak device memory "
+          f"{peak / 2**30:.3f} GiB; losses {[round(l, 6) for l, _ in metrics]}, "
+          f"grad norms {[round(n, 4) for _, n in metrics]}; launches per step "
+          f"{per_step}", flush=True)
+    for counts in per_step:
+        if counts != train_path.LAUNCHES_PER_STEP:
+            fail(f"training step launches {counts}, expected "
+                 f"{train_path.LAUNCHES_PER_STEP}")
+    if not all(np.isfinite(l) and np.isfinite(n) for l, n in metrics):
+        fail("a training loss or grad norm is not finite")
+    del path
+    torch.cuda.empty_cache()
+
+    def plain_step_1(scale):
+        path = train_path.build(seed=0)
+        path.image.mul_(scale)
+        with plain_versions():
+            t0 = time.perf_counter()
+            m = train_path.step(path)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        grads = {n: p.grad.detach() for n, p in path.model.named_parameters()}
+        del path
+        torch.cuda.empty_cache()
+        return float(m["loss"]), grads, wall
+
+    loss_k = metrics[0][0]
+    loss_p, grads_p, wall_plain = plain_step_1(1.0)
+    worst, worst_rel, whole = grad_rel(grads_k, grads_p)
+    _, grads_floor, _ = plain_step_1(1 + 1e-7)
+    floor_worst, floor_rel, floor_whole = grad_rel(grads_floor, grads_p)
+    del grads_floor
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    offset_grads = {n: grads_k[n].abs().max().item() for n in grads_k
+                    if n.endswith("conv_offset.weight")}
+    print(f"phase 7 noise floor, plain step 1 with the image x (1 + 1e-7) vs "
+          f"plain step 1: worst per-tensor ‖Δg‖/‖g‖ {floor_rel:.3e} ({floor_worst}), "
+          f"whole gradient {floor_whole:.3e}", flush=True)
+    print(f"phase 7 step 1 vs plain versions ({wall_plain:.3f} s): loss "
+          f"{loss_k:.7f} vs {loss_p:.7f} (rtol {LOSS_RTOL}); worst per-tensor "
+          f"‖Δg‖/‖g‖ {worst_rel:.3e} ({worst}; max {GRAD_TENSOR_RTOL}), whole "
+          f"gradient {whole:.3e} (max {GRAD_RTOL}) over {len(grads_p)} tensors; "
+          f"gradients finite {finite}; conv_offset.weight gradients nonzero in "
+          f"{sum(v > 0 for v in offset_grads.values())} of {len(offset_grads)} "
+          f"blocks (smallest max|g| {min(offset_grads.values()):.3e})", flush=True)
+    if abs(loss_k - loss_p) > LOSS_RTOL * abs(loss_p):
+        fail("the training loss through the kernels disagrees with the plain run")
+    if worst_rel > GRAD_TENSOR_RTOL or whole > GRAD_RTOL:
+        fail(f"the gradient through the kernels disagrees with the plain run ({worst})")
+    if not finite:
+        fail("a gradient is not finite")
+    if len(offset_grads) != BLOCKS or min(offset_grads.values()) <= 0:
+        fail("a conv_offset.weight got no gradient")
+    return per_step, s_step
+
+
 def kernel_line(rows, launches):
+    """rows[name]: the per-stage measurements; launches[name]: counts by path."""
     sources = {"deform_conv3d": ("deformablelka_tpu_torch/csrc/deform3d.cu",
                                  "deformablelka_tpu/ops/pallas/deform3d_kernel.py:1008"),
                "dw_chain3d": ("deformablelka_tpu_torch/csrc/dw_chain3d.cu",
-                              "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:240")}
+                              "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:240"),
+               "deform_conv3d_bwd": ("deformablelka_tpu_torch/csrc/deform3d_bwd.cu",
+                                     "deformablelka_tpu/ops/pallas/deform3d_bwd_kernel.py:182")}
+    per = {"deform_conv3d": "one forward at batch 8: the 21 launches at the four stage shapes",
+           "dw_chain3d": "one forward at batch 8: the 21 launches at the four stage shapes",
+           "deform_conv3d_bwd": "one training step at batch 2: the 21 launches at the four stage shapes"}
     out = []
     for name, rs in rows.items():
-        per_fwd = lambda key: sum(r["sites"] * r[key] for r in rs)
-        bound, by = _bound({"bytes_ms": per_fwd("bytes_ms"),
-                            "ops_ms": per_fwd("ops_ms")})
+        per_call = lambda key: sum(r["sites"] * r[key] for r in rs)
+        bound, by = _bound({"bytes_ms": per_call("bytes_ms"),
+                            "ops_ms": per_call("ops_ms")})
         out.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
+            "replaces": sources[name][1],
+            "launches": sum(launches[path][name] for path in launches),
+            "launches_by_path": {path: launches[path][name] for path in launches},
             "max_abs_err": max(r["err"] for r in rs),
-            "ms": per_fwd("ms"), "plain_ms": per_fwd("plain_ms"),
+            "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
             "bound_ms": bound, "bound_by": by,
-            "library_ms": None if rs[0]["lib_ms"] is None else per_fwd("lib_ms"),
-            "per": "one forward at batch 8: the 21 launches at the four stage shapes",
+            "library_ms": None if rs[0]["lib_ms"] is None else per_call("lib_ms"),
+            "per": per[name],
         })
     return {"kernels": out}
 
@@ -278,8 +497,14 @@ def main() -> int:
     rows = phase_kernels()
     phase_small_reference()
     launches, _ = phase_main_path()
+    rows["deform_conv3d_bwd"] = phase_backward_kernel()
+    phase_small_train_step()
+    per_step, _ = phase_train_path()
+    train_launches = {n: sum(c[n] for c in per_step) for n in per_step[0]}
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps(kernel_line(rows, launches)), flush=True)
+    print(json.dumps(kernel_line(rows, {"inference main path": launches,
+                                        "training path, 3 steps": train_launches})),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

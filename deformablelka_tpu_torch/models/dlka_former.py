@@ -5,6 +5,11 @@ Port of `Encoder`, `UpBlock`, `DLKAFormer` and `dlka_former_synapse` in
 (`d_lka_former_encoder.downsample_layers`, `.stages`, `encoder1`,
 `decoder5`…`decoder2`, `out1`…`out3`), so `state_dict()` converts with
 `deformablelka_tpu.convert.torch_loader.convert_dlka_former`.
+
+`remat=True` recomputes each transformer block of the encoder stages and
+the up-blocks in the backward pass instead of keeping its activations
+(`torch.utils.checkpoint`, the JAX package's `nn.remat`), whenever
+gradients are on; inference is unaffected.
 """
 
 from __future__ import annotations
@@ -15,12 +20,22 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from deformablelka_tpu_torch.nn.dynunet import UnetOutBlock, UnetResBlock
 from deformablelka_tpu_torch.nn.layers import Conv3d, ConvTranspose, init_parameters
 from deformablelka_tpu_torch.nn.norms import GroupNorm
 from deformablelka_tpu_torch.nn.transformer3d import (
     TransformerBlock_3D_single_deform_LKA as Block)
+
+
+def _run_blocks(blocks: nn.Sequential, x, remat: bool):
+    for block in blocks:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, use_reentrant=False)
+        else:
+            x = block(x)
+    return x
 
 
 def _wrapped(module: nn.Module) -> nn.Sequential:
@@ -34,8 +49,9 @@ class Encoder(nn.Module):
 
     def __init__(self, in_channels: int, dims: Sequence[int],
                  depths: Sequence[int], input_sizes: Sequence[int],
-                 patch_size):
+                 patch_size, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.downsample_layers = nn.ModuleList()
         self.downsample_layers.append(nn.Sequential(
             _wrapped(Conv3d(in_channels, dims[0], patch_size,
@@ -54,7 +70,7 @@ class Encoder(nn.Module):
     def forward(self, x):
         hidden = []
         for down, stage in zip(self.downsample_layers, self.stages):
-            x = stage(down(x))
+            x = _run_blocks(stage, down(x), self.remat)
             hidden.append(x)
         return hidden
 
@@ -65,8 +81,9 @@ class UpBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  upsample_kernel_size, out_size: int, depth: int = 3,
-                 conv_decoder: bool = False):
+                 conv_decoder: bool = False, remat: bool = False):
         super().__init__()
+        self.conv_decoder, self.remat = conv_decoder, remat
         self.transp_conv = _wrapped(ConvTranspose(
             in_channels, out_channels, upsample_kernel_size,
             stride=upsample_kernel_size, bias=False))
@@ -79,7 +96,10 @@ class UpBlock(nn.Module):
         self.decoder_block = nn.ModuleList([block])
 
     def forward(self, x, skip):
-        return self.decoder_block[0](self.transp_conv(x) + skip)
+        x = self.transp_conv(x) + skip
+        if self.conv_decoder:
+            return self.decoder_block[0](x)
+        return _run_blocks(self.decoder_block[0], x, self.remat)
 
 
 class DLKAFormer(nn.Module):
@@ -89,19 +109,20 @@ class DLKAFormer(nn.Module):
     def __init__(self, out_channels: int, in_channels: int = 1,
                  img_size=(64, 128, 128), patch_size=(2, 4, 4),
                  feature_size: int = 16, depths=(3, 3, 3, 3),
-                 dims=(32, 64, 128, 256), do_ds: bool = True):
+                 dims=(32, 64, 128, 256), do_ds: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.do_ds = do_ds
         s = [img_size[i] // patch_size[i] for i in range(3)]
         input_sizes = [math.prod(v // 2 ** i for v in s) for i in range(4)]
         fs = feature_size
         self.d_lka_former_encoder = Encoder(in_channels, dims, depths,
-                                            input_sizes, patch_size)
+                                            input_sizes, patch_size, remat)
         self.encoder1 = UnetResBlock(in_channels, fs, 3, 1,
                                      norm_name="instance")
-        self.decoder5 = UpBlock(dims[3], fs * 8, 2, input_sizes[2])
-        self.decoder4 = UpBlock(fs * 8, fs * 4, 2, input_sizes[1])
-        self.decoder3 = UpBlock(fs * 4, fs * 2, 2, input_sizes[0])
+        self.decoder5 = UpBlock(dims[3], fs * 8, 2, input_sizes[2], remat=remat)
+        self.decoder4 = UpBlock(fs * 8, fs * 4, 2, input_sizes[1], remat=remat)
+        self.decoder3 = UpBlock(fs * 4, fs * 2, 2, input_sizes[0], remat=remat)
         self.decoder2 = UpBlock(fs * 2, fs, patch_size, math.prod(img_size),
                                 conv_decoder=True)
         self.out1 = UnetOutBlock(fs, out_channels)
@@ -123,8 +144,8 @@ class DLKAFormer(nn.Module):
 
 
 def dlka_former_synapse(num_classes: int = 14, do_ds: bool = True,
-                        img_size=(64, 128, 128), *, seed: int = 0,
-                        device="cuda") -> DLKAFormer:
+                        img_size=(64, 128, 128), *, remat: bool = False,
+                        seed: int = 0, device="cuda") -> DLKAFormer:
     """The Synapse configuration (patch 64×128×128, stem patch (2, 4, 4)),
     initialised from a `torch.Generator` seeded with `seed`, in eval mode,
     on `device` (the card unless the caller asks for the CPU)."""
@@ -132,6 +153,6 @@ def dlka_former_synapse(num_classes: int = 14, do_ds: bool = True,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
     model = DLKAFormer(out_channels=num_classes, img_size=tuple(img_size),
-                       patch_size=(2, 4, 4), do_ds=do_ds)
+                       patch_size=(2, 4, 4), do_ds=do_ds, remat=remat)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.eval().to(device)

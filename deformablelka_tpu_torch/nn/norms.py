@@ -83,7 +83,9 @@ class InstanceNorm(_Affine):
 
 
 class BatchNorm(_Affine):
-    """Batch norm in eval mode: the running statistics normalise."""
+    """Batch norm in eval mode: the running statistics normalise. This is
+    also its training mode in the port: the JAX trainers run the model
+    with `deterministic=True`, so batch statistics are never used."""
 
     def __init__(self, num_channels: int, eps: float = 1e-5):
         super().__init__(num_channels)

@@ -9,7 +9,11 @@ the inner kind `lka_deform` (`TransformerBlock_3D_single_deform_LKA`):
 
 Attribute names are upstream's: `pos_embed`, `gamma`, `norm`,
 `epa_block`, `conv51`, and `conv8` as Sequential(Dropout3d, Conv3d), so
-its conv is `conv8.1`. Inference only: the dropout is the identity.
+its conv is `conv8.1`. The JAX trainers build the model with
+`deterministic=True` (`cli/run_training.py:81-84`; `bench.py`'s training
+step takes the default), so in training too the dropout is the identity
+and `conv51`'s batch norm normalises with its running statistics: this
+forward is the training forward as well.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ Each of the 8 corners of a sample contributes zero when it falls outside
 the volume. There is no clip of the offsets and no branch on their size.
 
 This is the CPU path of `ops.kernels.deform_conv3d` and the reference the
-CUDA kernel is held against on the card.
+CUDA kernel is held against on the card; `deform_conv3d_backward`, its
+autograd gradient, is the same for the backward kernel.
 """
 
 from __future__ import annotations
@@ -96,3 +97,14 @@ def deform_conv3d(x, offset, w, bias=None, *, stride=1, padding=1,
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
+
+
+def deform_conv3d_backward(x, offset, w, g):
+    """(dx, d-offset, dw) of `deform_conv3d(x, offset, w)` (3³, stride 1,
+    pad 1) at the cotangent g: `torch.autograd.grad` of the plain forward.
+    floor has zero derivative, so at an integer coordinate the offset
+    gradient is the right derivative x(z0 + 1) − x(z0), as in D3D."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, offset, w)]
+        y = deform_conv3d(*inputs)
+        return torch.autograd.grad(y, inputs, g)

@@ -8,11 +8,15 @@ flags, and the library is loaded with `ctypes`. nvcc is taken from PATH,
 else from `$CUDA_HOME/bin`.
 
 Each wrapper takes the JAX package's layouts, checks device, dtype, shape
-and contiguity, allocates its output with `torch.empty`, launches on the
-current stream and raises if the launch failed. On a CPU tensor it
-computes the plain PyTorch version instead; on a CUDA tensor it launches
-the kernel or raises, and never falls back. `wrapper.launches` counts the
-kernel's launches.
+and contiguity, allocates its outputs with `torch.empty` (or `torch.zeros`
+where the kernel accumulates with atomics), launches on the current stream
+and raises if the launch failed. On a CPU tensor it computes the plain
+PyTorch version instead, which autograd differentiates; on a CUDA tensor it
+launches the kernel or raises, and never falls back. On a CUDA tensor
+`deform_conv3d` and `dw_chain3d` are `torch.autograd.Function`s:
+`deform_conv3d`'s backward launches the backward kernel
+(`deform_conv3d_bwd`), `dw_chain3d`'s is the VJP of its plain version.
+`wrapper.launches` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from pathlib import Path
 import torch
 
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_conv3d_plain
+from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as dw_chain3d_plain
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -94,6 +99,8 @@ def library() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.dlka_deform_conv3d.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
         lib.dlka_deform_conv3d.restype = i32
+        lib.dlka_deform_conv3d_bwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        lib.dlka_deform_conv3d_bwd.restype = i32
         lib.dlka_dw_chain3d.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.dlka_dw_chain3d.restype = i32
         lib.dlka_error_string.argtypes = [i32]
@@ -123,25 +130,23 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def deform_conv3d(x, offset, w, bias=None):
-    """3³ deformable conv, stride 1, pad 1, dilation 1, groups 1.
-
-    x (B, D, H, W, Ci), offset (B, D, H, W, 81), w (3, 3, 3, Ci, Co),
-    bias (Co,) or None → (B, D, H, W, Co). Kernel: csrc/deform3d.cu.
-    """
-    if not x.is_cuda:
-        return deform_conv3d_plain(x, offset, w, bias)
+def _check_deform(x, offset, w):
     B, D, H, W, Ci = x.shape
-    Co = w.shape[-1]
     dev = x.device
     _require(x, "x", (B, D, H, W, Ci), dev)
     _require(offset, "offset", (B, D, H, W, 81), dev)
-    _require(w, "w", (3, 3, 3, Ci, Co), dev)
-    if bias is not None:
-        _require(bias, "bias", (Co,), dev)
+    _require(w, "w", (3, 3, 3, Ci, w.shape[-1]), dev)
     if B * D * H * W >= 2 ** 31:
         raise ValueError("deform_conv3d kernel: too many voxels for int32 indices")
-    y = torch.empty(B, D, H, W, Co, device=dev, dtype=torch.float32)
+
+
+def _deform_forward(x, offset, w, bias):
+    _check_deform(x, offset, w)
+    B, D, H, W, Ci = x.shape
+    Co = w.shape[-1]
+    if bias is not None:
+        _require(bias, "bias", (Co,), x.device)
+    y = torch.empty(B, D, H, W, Co, device=x.device, dtype=torch.float32)
     err = library().dlka_deform_conv3d(
         x.data_ptr(), offset.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
@@ -151,7 +156,62 @@ def deform_conv3d(x, offset, w, bias=None):
     return y
 
 
+class _DeformConv3d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, offset, w, bias):
+        ctx.save_for_backward(x, offset, w)
+        ctx.has_bias = bias is not None
+        return _deform_forward(x, offset, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offset, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx, doff, dw = deform_conv3d_bwd(x, offset, w, g)
+        # the JAX package adds the bias outside its kernel (ops/__init__.py:239)
+        dbias = g.sum((0, 1, 2, 3)) if ctx.has_bias else None
+        return dx, doff, dw, dbias
+
+
+def deform_conv3d(x, offset, w, bias=None):
+    """3³ deformable conv, stride 1, pad 1, dilation 1, groups 1.
+
+    x (B, D, H, W, Ci), offset (B, D, H, W, 81), w (3, 3, 3, Ci, Co),
+    bias (Co,) or None → (B, D, H, W, Co). Kernel: csrc/deform3d.cu;
+    its gradient: `deform_conv3d_bwd`.
+    """
+    if not x.is_cuda:
+        return deform_conv3d_plain(x, offset, w, bias)
+    return _DeformConv3d.apply(x, offset, w, bias)
+
+
 deform_conv3d.launches = 0
+
+
+def deform_conv3d_bwd(x, offset, w, g):
+    """(dx, d-offset, dw) of `deform_conv3d(x, offset, w)` at the cotangent
+    g (B, D, H, W, Co): the exact trilinear gradient, right derivative at
+    integer offsets. Kernel: csrc/deform3d_bwd.cu (two launches, counted
+    as one call)."""
+    if not x.is_cuda:
+        return deform_conv3d_backward(x, offset, w, g)
+    _check_deform(x, offset, w)
+    B, D, H, W, Ci = x.shape
+    Co = w.shape[-1]
+    _require(g, "g", (B, D, H, W, Co), x.device)
+    dx = torch.zeros_like(x)
+    doff = torch.empty_like(offset)
+    dw = torch.zeros_like(w)
+    err = library().dlka_deform_conv3d_bwd(
+        x.data_ptr(), offset.data_ptr(), w.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), doff.data_ptr(), dw.data_ptr(),
+        B, D, H, W, Ci, Co, _stream())
+    _check(err, "deform_conv3d_bwd")
+    deform_conv3d_bwd.launches += 1
+    return dx, doff, dw
+
+
+deform_conv3d_bwd.launches = 0
 
 # dw_chain3d keeps, per channel of its tile of CT, 7 whole H×W planes and
 # 5 haloed input planes in shared memory; CT is the widest that keeps that
@@ -172,14 +232,7 @@ def chain_channel_tile(H: int, W: int, C: int) -> int:
                      "shared memory")
 
 
-def dw_chain3d(x, w_dw, b_dw, w_dil, b_dil):
-    """dw5³ (pad 2) + bias → dw7³ dilation 3 (pad 9) + bias, fused.
-
-    x (B, D, H, W, C), w_dw (5, 5, 5, 1, C), b_dw (C,), w_dil (7, 7, 7, 1,
-    C), b_dil (C,) → (B, D, H, W, C). Kernel: csrc/dw_chain3d.cu.
-    """
-    if not x.is_cuda:
-        return dw_chain3d_plain(x, w_dw, b_dw, w_dil, b_dil)
+def _chain_forward(x, w_dw, b_dw, w_dil, b_dil):
     B, D, H, W, C = x.shape
     dev = x.device
     _require(x, "x", (B, D, H, W, C), dev)
@@ -197,9 +250,43 @@ def dw_chain3d(x, w_dw, b_dw, w_dil, b_dil):
     return y
 
 
+class _DwChain3d(torch.autograd.Function):
+    """Forward: the chain kernel. Backward: the VJP of the plain chain (two
+    depthwise `F.conv3d`, recomputed; cuDNN on the card), as the JAX package
+    differentiates its fused kernel (`lka_fused_kernel.py:252-255` `_c3_bwd`):
+    the JAX package has no backward kernel for the chain, so neither does the
+    port."""
+
+    @staticmethod
+    def forward(ctx, x, w_dw, b_dw, w_dil, b_dil):
+        ctx.save_for_backward(x, w_dw, b_dw, w_dil, b_dil)
+        return _chain_forward(x, w_dw, b_dw, w_dil, b_dil)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need) for t, need
+                  in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = dw_chain3d_plain(*inputs)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, g))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def dw_chain3d(x, w_dw, b_dw, w_dil, b_dil):
+    """dw5³ (pad 2) + bias → dw7³ dilation 3 (pad 9) + bias, fused.
+
+    x (B, D, H, W, C), w_dw (5, 5, 5, 1, C), b_dw (C,), w_dil (7, 7, 7, 1,
+    C), b_dil (C,) → (B, D, H, W, C). Kernel: csrc/dw_chain3d.cu.
+    """
+    if not x.is_cuda:
+        return dw_chain3d_plain(x, w_dw, b_dw, w_dil, b_dil)
+    return _DwChain3d.apply(x, w_dw, b_dw, w_dil, b_dil)
+
+
 dw_chain3d.launches = 0
 
-WRAPPERS = (deform_conv3d, dw_chain3d)
+WRAPPERS = (deform_conv3d, dw_chain3d, deform_conv3d_bwd)
 
 
 def reset_launches() -> None:

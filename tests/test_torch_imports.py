@@ -25,8 +25,10 @@ sys.exit(1 if bad else 0)
 
 
 def test_port_modules_are_listed():
-    assert "deformablelka_tpu_torch.ops.kernels" in MODULES
-    assert len(MODULES) >= 15
+    for name in ("ops.kernels", "training.losses", "training.train_step",
+                 "train_path", "main_path", "profiling"):
+        assert f"deformablelka_tpu_torch.{name}" in MODULES
+    assert len(MODULES) >= 18
 
 
 @pytest.mark.parametrize("names", [MODULES, ["chip_smoke"]],

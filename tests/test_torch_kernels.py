@@ -5,15 +5,21 @@ test, so every worker collects the same tests). On the card:
 `python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
 (`tests/conftest.py` imports JAX). TF32 is off on
 both sides. Tolerance: max|kernel − plain| ≤ 1e-4 · max(1, max|plain|),
-f32 sums in another order.
+f32 sums in another order (and, in the backward kernel, atomics in an
+order that changes from run to run).
 """
+
+from unittest import mock
 
 import pytest
 import torch
 
 from deformablelka_tpu_torch.models.dlka_former import dlka_former_synapse
+from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d, LKA3dDeform
+from deformablelka_tpu_torch.nn.layers import init_parameters
 from deformablelka_tpu_torch.ops import kernels
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_plain
+from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +102,66 @@ def test_model_on_the_card_matches_the_cpu_and_counts_launches(cuda):
     assert kernels.deform_conv3d.launches == 21
     assert kernels.dw_chain3d.launches == 21
     _close(got, ref)
+
+
+@pytest.mark.parametrize("B,S,Ci,Co", [(2, 32, 32, 32), (2, 16, 64, 64),
+                                       (2, 8, 128, 128), (2, 4, 256, 256),
+                                       (1, (3, 5, 7), 5, 3), (2, (6, 4, 9), 40, 70)])
+def test_deform_backward_kernel_matches_plain(cuda, B, S, Ci, Co):
+    D, H, W = S if isinstance(S, tuple) else (S,) * 3
+    x = torch.randn(B, D, H, W, Ci, device="cuda", generator=cuda)
+    off = (torch.rand(B, D, H, W, 81, device="cuda", generator=cuda) * 2 - 1) * 2.5
+    w = torch.randn(3, 3, 3, Ci, Co, device="cuda", generator=cuda) / (27 * Ci) ** 0.5
+    g = torch.randn(B, D, H, W, Co, device="cuda", generator=cuda)
+    before = kernels.deform_conv3d_bwd.launches
+    got = kernels.deform_conv3d_bwd(x, off, w, g)
+    assert kernels.deform_conv3d_bwd.launches == before + 1
+    for a, r in zip(got, deform_conv3d_backward(x, off, w, g)):
+        _close(a, r)
+
+
+def test_kernel_outputs_carry_a_grad_fn(cuda):
+    x = torch.randn(1, 4, 5, 6, 8, device="cuda", requires_grad=True)
+    off = torch.zeros(1, 4, 5, 6, 81, device="cuda")
+    w = torch.randn(3, 3, 3, 8, 8, device="cuda")
+    assert kernels.deform_conv3d(x, off, w).grad_fn is not None
+    w5, w7, b = (torch.randn(5, 5, 5, 1, 8, device="cuda"),
+                 torch.randn(7, 7, 7, 1, 8, device="cuda"),
+                 torch.zeros(8, device="cuda"))
+    assert kernels.dw_chain3d(x, w5, b, w7, b).grad_fn is not None
+
+
+@pytest.mark.parametrize("gate", [DeformConvPack3d, LKA3dDeform])
+def test_gate_gradients_on_the_card_match_the_plain_path(cuda, gate):
+    """One backward through the module: every parameter (and the input)
+    gets the gradient of the plain path, with offsets past ±1."""
+    C = 16
+    m = gate(C)
+    init_parameters(m, torch.Generator().manual_seed(0))
+    pack = m if isinstance(m, DeformConvPack3d) else m.deform_conv
+    with torch.no_grad():
+        pack.conv_offset.weight.normal_(
+            0.0, 10.0 / (27 * C) ** 0.5, generator=torch.Generator().manual_seed(1))
+    m = m.cuda()
+    x = torch.randn(2, 6, 7, 5, C, device="cuda", generator=cuda)
+    gy = torch.randn(2, 6, 7, 5, C, device="cuda", generator=cuda)
+
+    def grads():
+        m.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        y = m(xi)
+        y.backward(gy)
+        return {"input": xi.grad, **{n: p.grad for n, p in m.named_parameters()}}
+
+    before = kernels.deform_conv3d_bwd.launches
+    got = grads()
+    assert kernels.deform_conv3d_bwd.launches == before + 1
+    with mock.patch.object(kernels, "deform_conv3d", deform_plain), \
+            mock.patch.object(kernels, "dw_chain3d", chain_plain):
+        ref = grads()
+    assert sorted(got) == sorted(ref)
+    for name in ref:
+        assert got[name] is not None and ref[name] is not None, name
+        _close(got[name], ref[name])
+    assert got["conv_offset.weight" if gate is DeformConvPack3d
+               else "deform_conv.conv_offset.weight"].abs().max() > 0
