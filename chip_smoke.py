@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,7 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    the build of csrc/*.cu and its time;
-2. each hand kernel against its plain PyTorch version, at the four stage
+2. each 3D forward kernel against its plain PyTorch version, at the four stage
    shapes of the main path with batch 8 (deform offsets uniform in
    ±2.5, so some corners fall outside the volume), TF32 off: max|err|
    against the stated tolerance, and the times of the kernel, the plain
@@ -22,9 +22,9 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    seeded 96×192×160 volume with patch 64×128×128, step 0.5, Gaussian
    blending, 8-flip mirror TTA in one batch and argmax on the device.
    It prints the wall time, the peak device memory, each kernel's launch
-   count (must be 21 blocks × 8 tiles = 168 of each forward kernel and no
-   backward) and the share of voxels whose label agrees with the same run
-   through the plain versions;
+   count (must be 21 blocks × 8 tiles = 168 of each 3D forward kernel and
+   none of the others) and the share of voxels whose label agrees with
+   the same run through the plain versions;
 5. the deform backward kernel against its plain version (autograd of the
    plain forward) at the four stage shapes with batch 2, offsets uniform
    in ±2.5, TF32 off: max|err| of dx, d-offset and dw against the stated
@@ -45,7 +45,27 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    relative, every parameter tensor's gradient within ‖Δg‖ ≤ 1.5e-2·‖g‖ and
    the whole gradient within 1e-3 (beside the same comparison of the plain
    step with itself on an image scaled by 1 + 1e-7: its noise floor), all
-   gradients finite and every `conv_offset.weight` gradient nonzero.
+   gradients finite and every `conv_offset.weight` gradient nonzero;
+8. the 2D kernels against their plain versions at the three decoder
+   shapes of the 2D path (14²×384, 28²×192, 56²×96) with batch 24, TF32
+   off: the depthwise deform conv at 5×5 and 7×7-dil3 (offsets uniform in
+   ±2.5, a quarter of them exact integers) and the 2D LKA chain, each
+   with max|err| against the stated tolerance, the kernel's, the plain
+   version's and the bound's times, and for the chain two depthwise
+   `F.conv2d` as its library time (no PyTorch call computes the deform
+   conv: torchvision is absent);
+9. the 2D path (`main_path2d.py`): `Predictor2D.predict_volume` of a
+   seeded 40×512×512 case (224² patch, one chunk of 24 and a padded one
+   of 16) for the flagship and the LKA Baseline at full width from seed
+   0, layer scales 1 and the offset nets drawn from a seed: s/case, peak
+   device memory, launches (24 deform convs per case on the flagship, 12
+   chains on the Baseline, none of the others), then the same case
+   through the plain versions: labels equal on ≥ 0.999 of pixels;
+10. the 2D flagship at 64², batch 2, on the card against the same model
+   on the CPU;
+11. the 2D flagship's batch-1 224² latency in f32: CUDA events over 100
+   back-to-back forwards after 10 warm-up forwards, and the host-clock
+   mean ± std of 100 synchronised forwards.
 
 Then one JSON line of the kernels' numbers and, last, the contract line
 {"ok": true, "device": {...}}. Any failure exits nonzero before it.
@@ -62,19 +82,29 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deformablelka_tpu_torch import main_path, train_path
+from deformablelka_tpu_torch import main_path, main_path2d, train_path
 from deformablelka_tpu_torch.grad_floor import plain_versions
+from deformablelka_tpu_torch.inference.predictor2d import benchmark_inference_speed
 from deformablelka_tpu_torch.main_path import BLOCKS, PATCH, TILES, VOLUME
 from deformablelka_tpu_torch.models.dlka_former import dlka_former_synapse
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d
+from deformablelka_tpu_torch.nn.lka2d import DeformConv
 from deformablelka_tpu_torch.ops import kernels
-from deformablelka_tpu_torch.ops.convs import to_ncdhw
+from deformablelka_tpu_torch.ops.convs import to_nchw, to_ncdhw
+from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform2d_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward as deform_bwd_plain
+from deformablelka_tpu_torch.ops.lka import dw_chain2d as chain2d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
 
 # (spatial size, channels, transformer blocks at that stage) on the main path
 STAGES = ((32, 32, 6), (16, 64, 6), (8, 128, 6), (4, 256, 3))
+# (spatial size, channels) of decoder_2, decoder_1, decoder_0 on the 2D path;
+# each runs two LKA blocks: per forward, two launches of each deform conv
+# (5×5, 7×7-dil3) in the flagship and two chains in the LKA Baseline
+DECODER = ((14, 384), (28, 192), (56, 96))
+BATCH_2D = main_path2d.SLICE_BATCH
+DEFORM_SITES = ((5, 1), (7, 3))  # (k, dilation)
 BATCH = 8
 TRAIN_BATCH = train_path.BATCH
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
@@ -239,7 +269,7 @@ def phase_main_path():
           f"{TILES} tiles x 8 flips: {wall:.3f} s wall, peak device memory "
           f"{peak / 2**30:.3f} GiB, launches {launches}", flush=True)
     expected = {"deform_conv3d": BLOCKS * TILES, "dw_chain3d": BLOCKS * TILES,
-                "deform_conv3d_bwd": 0}
+                "deform_conv3d_bwd": 0, "deform_dw_conv2d": 0, "dw_chain2d": 0}
     if launches != expected:
         fail(f"main path launches {launches}, expected {expected}")
     if seg.shape != VOLUME or seg.dtype != np.uint8 or seg.max() >= 14:
@@ -456,6 +486,168 @@ def phase_train_path():
     return per_step, s_step
 
 
+def phase_2d_kernels():
+    """The 2D kernels against their plain versions at the decoder shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2024)
+    rows = {"deform_dw_conv2d": [], "dw_chain2d": []}
+    B = BATCH_2D
+    for S, C in DECODER:
+        x = torch.randn(B, S, S, C, device=dev, generator=g)
+        for k, dil in DEFORM_SITES:
+            K = k * k
+            # offsets uniform in ±2.5, a quarter of them exact integers
+            off = (torch.rand(B, S, S, 2 * K, device=dev, generator=g) * 2 - 1) * 2.5
+            pick = torch.rand(off.shape, device=dev, generator=g)
+            off = torch.where(pick < 0.25, off.round(), off)
+            w = torch.randn(k, k, 1, C, device=dev, generator=g) / k
+            ref = deform2d_plain(x, off, w, dil)
+            got = kernels.deform_dw_conv2d(x, off, w, dil)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            tol = REL_TOL * max(1.0, ref.abs().max().item())
+            ms = timed_ms(lambda: kernels.deform_dw_conv2d(x, off, w, dil), 20)
+            pms = timed_ms(lambda: deform2d_plain(x, off, w, dil), 3, warmup=1)
+            # read x, offsets and w once, write y once; per output value and
+            # tap the 4-corner bilinear blend (4 FMA) and the tap weight (1)
+            n_bytes = 4 * (B * S * S * (2 * C + 2 * K) + K * C)
+            flops = B * S * S * C * K * 2 * 5
+            bnd = bound_ms(n_bytes, flops)
+            bms, by = _bound(bnd)
+            rows["deform_dw_conv2d"].append(dict(S=S, C=C, k=k, sites=2, err=err, tol=tol,
+                                                 ms=ms, plain_ms=pms, lib_ms=None, **bnd))
+            print(f"phase 8 deform_dw_conv2d B={B} {S}^2 C={C} k={k} dil={dil}: max|err| "
+                  f"{err:.3e} (tol {tol:.3e}), |Δ|>1 share "
+                  f"{(off.abs() > 1).float().mean().item():.3f}, kernel {ms:.4f} ms, "
+                  f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), library none "
+                  "(torchvision is not installed)", flush=True)
+            if not err <= tol:
+                fail(f"deform_dw_conv2d disagrees with its plain version at {S}^2 C={C} k={k}")
+            del off, pick, ref, got
+        w5 = torch.randn(5, 5, 1, C, device=dev, generator=g) / 5
+        b5 = torch.randn(C, device=dev, generator=g) * 0.1
+        w7 = torch.randn(7, 7, 1, C, device=dev, generator=g) / 7
+        b7 = torch.randn(C, device=dev, generator=g) * 0.1
+        ref = chain2d_plain(x, w5, b5, w7, b7)
+        got = kernels.dw_chain2d(x, w5, b5, w7, b7)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = REL_TOL * max(1.0, ref.abs().max().item())
+        ms = timed_ms(lambda: kernels.dw_chain2d(x, w5, b5, w7, b7), 20)
+        pms = timed_ms(lambda: chain2d_plain(x, w5, b5, w7, b7), 10)
+        # the library call: two depthwise F.conv2d on NCHW tensors
+        xn = to_nchw(x).contiguous()
+        w5n, w7n = w5.permute(3, 2, 0, 1).contiguous(), w7.permute(3, 2, 0, 1).contiguous()
+        lms = timed_ms(lambda: F.conv2d(F.conv2d(xn, w5n, b5, padding=2, groups=C),
+                                        w7n, b7, padding=9, dilation=3, groups=C), 20)
+        n_bytes = 4 * (2 * B * S * S * C + (25 + 49 + 2) * C)
+        flops = B * S * S * C * 2 * (25 + 49)
+        bnd = bound_ms(n_bytes, flops)
+        bms, by = _bound(bnd)
+        rows["dw_chain2d"].append(dict(S=S, C=C, sites=2, err=err, tol=tol, ms=ms,
+                                       plain_ms=pms, lib_ms=lms, **bnd))
+        print(f"phase 8 dw_chain2d B={B} {S}^2 C={C}: max|err| {err:.3e} (tol "
+              f"{tol:.3e}), kernel {ms:.4f} ms, plain {pms:.4f} ms, F.conv2d x2 "
+              f"{lms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+        if not err <= tol:
+            fail(f"dw_chain2d disagrees with its plain version at {S}^2 C={C}")
+        del x, xn, ref, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_2d_path():
+    """Predictor2D on a seeded 40×512×512 case, both configurations, then
+    the same case through the plain versions."""
+    image = main_path2d.case(seed=0)
+    S = image.shape[0]
+    forwards = -(-S // BATCH_2D)
+    launches, walls = {}, {}
+    for config in main_path2d.CONFIGS:
+        model, predictor = main_path2d.build(config, seed=0)
+        offsets_seen = []
+        with torch.no_grad():  # warm-up: one forward at the slice batch
+            model(torch.zeros(BATCH_2D, *main_path2d.PATCH, 1, device="cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        labels = predictor.predict_volume(image)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[config] = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        expected = {n: 0 for n in launches[config]}
+        expected.update({n: forwards * c for n, c
+                         in main_path2d.LAUNCHES_PER_FORWARD[config].items()})
+        print(f"phase 9 2D path {config}: predict_volume {image.shape} at "
+              f"{main_path2d.PATCH}, {forwards} forwards of {BATCH_2D}: {wall:.3f} s/case, "
+              f"peak device memory {peak / 2**30:.3f} GiB, launches {launches[config]}",
+              flush=True)
+        if launches[config] != expected:
+            fail(f"2D path {config} launches {launches[config]}, expected {expected}")
+        if (labels.shape != image.shape or labels.min() < 0
+                or labels.max() >= main_path2d.NUM_CLASSES):
+            fail(f"bad labels {labels.shape} {labels.dtype}")
+        hooks = [m.offset_net.register_forward_hook(
+            lambda _m, _i, out: offsets_seen.append(out.abs().max().item()))
+            for m in model.modules() if isinstance(m, DeformConv)]
+        with plain_versions():
+            t0 = time.perf_counter()
+            labels_plain = predictor.predict_volume(image)
+            torch.cuda.synchronize()
+            wall_plain = time.perf_counter() - t0
+        for h in hooks:
+            h.remove()
+        agree = float((labels == labels_plain).mean())
+        print(f"phase 9 2D path {config} vs plain versions: label agreement {agree:.6f} "
+              f"(min {MIN_AGREEMENT}), plain run {wall_plain:.3f} s; classes in labels "
+              f"{np.unique(labels).size}"
+              + (f"; offsets max|Δ| {max(offsets_seen):.3f}" if offsets_seen else ""),
+              flush=True)
+        if agree < MIN_AGREEMENT:
+            fail(f"the 2D path {config} through the kernels disagrees with the plain versions")
+        if config == "dlka" and max(offsets_seen) <= 1.0:
+            fail("the 2D offsets never reached past ±1")
+        walls[config] = wall
+        del model, predictor
+        torch.cuda.empty_cache()
+    return launches, walls
+
+
+def phase_2d_small_reference():
+    """The 2D flagship on the card against the same model on the CPU."""
+    img = 64
+    models = {dev: main_path2d.build("dlka", seed=0, device=dev, img_size=img)[0]
+              for dev in ("cuda", "cpu")}
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, img, img, 1).astype(np.float32))
+    with torch.no_grad():
+        ref = models["cpu"](x)
+        got = models["cuda"](x.cuda()).cpu()
+    err = (got - ref).abs().max().item()
+    tol = 1e-3 * max(1.0, ref.abs().max().item())
+    same = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    print(f"phase 10 2D flagship {img}^2 B=2: CUDA model vs CPU model max|err| "
+          f"{err:.3e} (tol {tol:.3e}), argmax equal on {same:.6f}, finite "
+          f"{bool(torch.isfinite(got).all())}", flush=True)
+    if not (err <= tol and torch.isfinite(got).all()):
+        fail("the 2D CUDA model disagrees with the CPU model")
+
+
+def phase_2d_latency():
+    """Batch-1 224² latency of the flagship, f32: warm-up, then timed
+    forwards (`bench.py:109-129` times a scan of 100 on the device)."""
+    model, _ = main_path2d.build("dlka", seed=0)
+    x = torch.zeros(1, *main_path2d.PATCH, 1, device="cuda")
+    with torch.no_grad():
+        device_ms = timed_ms(lambda: model(x), 100, warmup=10)
+    mean, std = benchmark_inference_speed(model, main_path2d.PATCH, warmup=10, reps=100)
+    print(f"phase 11 2D flagship batch 1 {main_path2d.PATCH} f32: {device_ms:.3f} ms per "
+          f"forward (CUDA events over 100 back-to-back forwards); "
+          f"{mean:.3f} ± {std:.3f} ms (host clock, synchronised, 100 reps)", flush=True)
+    return device_ms
+
+
 def kernel_line(rows, launches):
     """rows[name]: the per-stage measurements; launches[name]: counts by path."""
     sources = {"deform_conv3d": ("deformablelka_tpu_torch/csrc/deform3d.cu",
@@ -463,10 +655,16 @@ def kernel_line(rows, launches):
                "dw_chain3d": ("deformablelka_tpu_torch/csrc/dw_chain3d.cu",
                               "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:240"),
                "deform_conv3d_bwd": ("deformablelka_tpu_torch/csrc/deform3d_bwd.cu",
-                                     "deformablelka_tpu/ops/pallas/deform3d_bwd_kernel.py:182")}
+                                     "deformablelka_tpu/ops/pallas/deform3d_bwd_kernel.py:182"),
+               "deform_dw_conv2d": ("deformablelka_tpu_torch/csrc/deform2d_dw.cu",
+                                    "deformablelka_tpu/ops/pallas/deform2d_kernel.py:182"),
+               "dw_chain2d": ("deformablelka_tpu_torch/csrc/dw_chain2d.cu",
+                              "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:261")}
     per = {"deform_conv3d": "one forward at batch 8: the 21 launches at the four stage shapes",
            "dw_chain3d": "one forward at batch 8: the 21 launches at the four stage shapes",
-           "deform_conv3d_bwd": "one training step at batch 2: the 21 launches at the four stage shapes"}
+           "deform_conv3d_bwd": "one training step at batch 2: the 21 launches at the four stage shapes",
+           "deform_dw_conv2d": "one flagship forward at batch 24: the 12 launches at the three decoder shapes",
+           "dw_chain2d": "one LKA Baseline forward at batch 24: the 6 launches at the three decoder shapes"}
     out = []
     for name, rs in rows.items():
         per_call = lambda key: sum(r["sites"] * r[key] for r in rs)
@@ -501,10 +699,14 @@ def main() -> int:
     phase_small_train_step()
     per_step, _ = phase_train_path()
     train_launches = {n: sum(c[n] for c in per_step) for n in per_step[0]}
+    rows.update(phase_2d_kernels())
+    launches_2d, _ = phase_2d_path()
+    phase_2d_small_reference()
+    phase_2d_latency()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps(kernel_line(rows, {"inference main path": launches,
-                                        "training path, 3 steps": train_launches})),
-          flush=True)
+    print(json.dumps(kernel_line(rows, {
+        "inference main path": launches, "training path, 3 steps": train_launches,
+        **{f"2D path {c}": n for c, n in launches_2d.items()}})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,15 +1,21 @@
-"""deformablelka_tpu_torch — the D-LKA Former in PyTorch for NVIDIA Hopper.
+"""deformablelka_tpu_torch — D-LKA Net in PyTorch for NVIDIA Hopper.
 
-A port of the JAX package `deformablelka_tpu`, module for module. Tensors
-are channels-last (B, D, H, W, C) at every public function, as in the JAX
-package, and module attributes keep the upstream torch names, so a
-state_dict converts with `deformablelka_tpu.convert.torch_loader`.
+A port of the JAX package `deformablelka_tpu`, module for module: the 3D
+D-LKA Former (inference and training) and the 2D MaxViT D-LKA Net
+(slice inference). Tensors are channels-last ((B, D, H, W, C) or (B, H,
+W, C)) at every public function, as in the JAX package, and module
+attributes keep the upstream torch names, so a state_dict converts with
+`deformablelka_tpu.convert.torch_loader`.
 
-The two kernels of the 3D inference path are hand-written CUDA for
-`sm_90a` (`csrc/`), built with nvcc at first use (`ops/kernels.py`):
+The kernels are hand-written CUDA for `sm_90a` (`csrc/`), built with nvcc
+at first use (`ops/kernels.py`):
 
-- `ops.kernels.deform_conv3d`: the exact trilinear 3³ deformable conv;
-- `ops.kernels.dw_chain3d`: the fused dw5³ → dw7³-dil3 LKA chain.
+- `ops.kernels.deform_conv3d` and `deform_conv3d_bwd`: the exact
+  trilinear 3³ deformable conv and its backward;
+- `ops.kernels.dw_chain3d`: the fused dw5³ → dw7³-dil3 LKA chain;
+- `ops.kernels.deform_dw_conv2d`: the exact bilinear depthwise 2D
+  deformable conv;
+- `ops.kernels.dw_chain2d`: the fused dw5² → dw7²-dil3 LKA chain.
 
 Each has a plain PyTorch version beside it, which a CPU tensor takes.
 Importing this package imports nothing but torch, numpy and scipy.

@@ -3,19 +3,24 @@
 `state_dict_from_jax(variables, module)` turns JAX variables, given as
 nested dicts of numpy arrays (`{"params": ..., "batch_stats": ...}`), into
 a state_dict for `module`, the port's counterpart of the JAX module they
-came from: the whole `DLKAFormer`, or any submodule down to one `Conv3d`.
-On the modules of this package it is the inverse of
-`deformablelka_tpu.convert.torch_loader.convert_dlka_former`:
+came from: a whole model (`DLKAFormer`, `MaxViTDeformableLKAFormer`), or
+any submodule down to one conv. On the modules of this package it is the
+inverse of `deformablelka_tpu.convert.torch_loader.convert_dlka_former`
+and `convert_maxvit_dlka`:
 
 - module paths: the JAX names that differ from upstream's torch names are
   renamed (`encoder/stage0_block1` → `d_lka_former_encoder.stages.0.1`,
-  `conv8` → `conv8.1`, …), and a layer that MONAI wraps in a
-  `Convolution` (a Sequential whose one child is `conv`) gets its `.conv`;
-- leaves: `scale` → `weight`; batch stats `mean`/`var` →
+  `backbone/stage0_block1` → `backbone.backbone.stages.0.blocks.1`,
+  `conv8` → `conv8.1`, `mlp_fc1` → `mlp.fc1`, …); where a name has two
+  renames, the one that names a submodule of `module` is taken. A layer
+  that MONAI wraps in a `Convolution` (a Sequential whose one child is
+  `conv`) gets its `.conv`; MaxViT's `BNAct/bn` is the BNAct itself;
+- leaves: `scale` → `weight`, `ls1` → `ls1.gamma`, `deform_conv_weight`
+  → `deform_conv.weight`; batch stats `mean`/`var` →
   `running_mean`/`running_var`;
-- layouts: conv kernels (kd, kh, kw, Cin/g, Cout) → (Cout, Cin/g, kd, kh,
-  kw), transposed-conv kernels (kd, kh, kw, Cin, Cout) → (Cin, Cout, kd,
-  kh, kw), linear (Cin, Cout) → (Cout, Cin).
+- layouts: conv kernels (k..., Cin/g, Cout) → (Cout, Cin/g, k...),
+  transposed-conv kernels (kd, kh, kw, Cin, Cout) → (Cin, Cout, kd, kh,
+  kw), linear (Cin, Cout) → (Cout, Cin).
 """
 
 from __future__ import annotations
@@ -36,11 +41,18 @@ _RENAMES = (
     (r"down(\d)_conv", r"downsample_layers.\1.0"),
     (r"down(\d)_norm", r"downsample_layers.\1.1"),
     (r"stage(\d)_block(\d+)", r"stages.\1.\2"),
+    (r"stage(\d)_block(\d+)", r"stages.\1.blocks.\2"),
     (r"decoder_block(\d+)", r"decoder_block.0.\1"),
     (r"decoder_block", "decoder_block.0"),
     (r"conv8", "conv8.1"),
+    (r"backbone", "backbone.backbone"),
+    (r"final_norm", "norm"),
+    (r"mlp_fc(\d)", r"mlp.fc\1"),
+    (r"bn", ""),
 )
-_LEAVES = {"params": {"scale": "weight"},
+_LEAVES = {"params": {"scale": "weight", "ls1": "ls1.gamma",
+                      "ls2": "ls2.gamma",
+                      "deform_conv_weight": "deform_conv.weight"},
            "batch_stats": {"mean": "running_mean", "var": "running_var"}}
 
 
@@ -52,17 +64,30 @@ def _walk(tree, prefix=()) -> Iterator[Tuple[tuple, np.ndarray]]:
             yield prefix + (k,), np.asarray(v)
 
 
+def _descend(m: nn.Module, path: str):
+    """The submodule at dotted `path` below m, or None."""
+    for name in filter(None, path.split(".")):
+        if name not in m._modules or m._modules[name] is None:
+            return None
+        m = m._modules[name]
+    return m
+
+
 def _resolve(module: nn.Module, parts: tuple) -> Tuple[list, nn.Module]:
     """JAX module path → (torch attribute names, torch submodule)."""
     names, m = [], module
     for p in parts:
-        for pattern, repl in _RENAMES:
-            if re.fullmatch(pattern, p):
-                p = re.sub(pattern, repl, p)
+        cands = [re.sub(pat, repl, p) for pat, repl in _RENAMES
+                 if re.fullmatch(pat, p)] or [p]
+        for cand in cands:
+            sub = _descend(m, cand)
+            if sub is not None:
                 break
-        for name in p.split("."):
-            m = m.get_submodule(name)
-            names.append(name)
+        else:
+            raise KeyError(f"{'/'.join(parts)}: no submodule {cands} under "
+                           f"{'.'.join(names) or type(module).__name__}")
+        names += list(filter(None, cand.split(".")))
+        m = sub
         if isinstance(m, nn.Sequential) and list(m._modules) == ["conv"]:
             m = m.conv
             names.append("conv")
@@ -74,6 +99,8 @@ def _layout(owner: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
         if isinstance(owner, ConvTranspose):
             return arr.transpose(3, 4, 0, 1, 2)
         return arr.transpose(4, 3, 0, 1, 2)
+    if leaf == "weight" and arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
     if leaf == "weight" and arr.ndim == 2:
         return arr.T
     return arr
@@ -84,8 +111,8 @@ def state_dict_from_jax(variables: Dict, module: nn.Module) -> Dict[str, torch.T
     sd = {}
     for collection, leaves in _LEAVES.items():
         for parts, arr in _walk(variables.get(collection, {})):
-            names, owner = _resolve(module, parts[:-1])
-            leaf = leaves.get(parts[-1], parts[-1])
+            *sub, leaf = leaves.get(parts[-1], parts[-1]).split(".")
+            names, owner = _resolve(module, parts[:-1] + tuple(sub))
             sd[".".join(names + [leaf])] = torch.tensor(
                 _layout(owner, leaf, arr), dtype=torch.float32)
     return sd

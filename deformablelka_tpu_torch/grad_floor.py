@@ -39,7 +39,7 @@ import torch
 
 from deformablelka_tpu_torch import train_path
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d
-from deformablelka_tpu_torch.ops import deform3d, kernels, lka
+from deformablelka_tpu_torch.ops import deform2d, deform3d, kernels, lka
 from deformablelka_tpu_torch.ops.convs import to_ncdhw
 
 SCALE = 1 + 1e-7
@@ -52,6 +52,9 @@ def plain_versions():
     stack.enter_context(mock.patch.object(kernels, "deform_conv3d",
                                           deform3d.deform_conv3d))
     stack.enter_context(mock.patch.object(kernels, "dw_chain3d", lka.dw_chain3d))
+    stack.enter_context(mock.patch.object(kernels, "deform_dw_conv2d",
+                                          deform2d.deform_dw_conv2d))
+    stack.enter_context(mock.patch.object(kernels, "dw_chain2d", lka.dw_chain2d))
     return stack
 
 

@@ -3,6 +3,7 @@
 Port of `deformablelka_tpu/nn/layers.py`. Parameters are named `weight`
 and `bias` and laid out as torch's own layers lay them out:
 
+  Conv2d.weight        : (Cout, Cin // groups, kh, kw)
   Conv3d.weight        : (Cout, Cin // groups, kd, kh, kw)
   ConvTranspose.weight : (Cin, Cout, kd, kh, kw)
   Linear.weight        : (Cout, Cin)
@@ -36,6 +37,33 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
         reset = getattr(m, "reset_parameters", None)
         if reset is not None:
             reset(generator)
+
+
+class Conv2d(nn.Module):
+    """2D conv on (B, H, W, Cin); `padding` is "same" (MONAI rule), an
+    int or two ints."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding="same", dilation=1, groups: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        ks = C._tuple(kernel_size, 2)
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels // groups, *ks))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def reset_parameters(self, generator=None):
+        bound = 1.0 / math.sqrt(math.prod(self.weight.shape[1:]))
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def forward(self, x):
+        return C.conv2d(x, self.weight, self.bias, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation,
+                        groups=self.groups)
 
 
 class Conv3d(nn.Module):
@@ -104,6 +132,20 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth. The port runs the models in eval (the JAX
+    package's `deterministic=True`), where it is the identity."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if self.rate and self.training:
+            raise NotImplementedError("DropPath in training mode is not ported")
+        return x
 
 
 def gelu(x):

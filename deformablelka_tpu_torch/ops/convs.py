@@ -1,11 +1,13 @@
-"""Channels-last convolution helpers on `F.conv3d` / `F.conv_transpose3d`.
+"""Channels-last convolution helpers on `F.conv2d` / `F.conv3d` /
+`F.conv_transpose3d`.
 
 Port of `deformablelka_tpu/ops/convs.py`. Activations are channels-last,
-(B, D, H, W, C), as in the JAX package; weights are in torch's layout,
-(Cout, Cin // groups, kd, kh, kw) for a conv and (Cin, Cout, kd, kh, kw)
-for a transposed conv, because the modules hold them so. A channels-last
-tensor seen through `permute(0, 4, 1, 2, 3)` is a `channels_last_3d`
-NCDHW tensor, so no copy is made on the way in or out.
+(B, D, H, W, C) or (B, H, W, C), as in the JAX package; weights are in
+torch's layout, (Cout, Cin // groups, [kd,] kh, kw) for a conv and (Cin,
+Cout, kd, kh, kw) for a transposed conv, because the modules hold them
+so. A channels-last tensor seen through `permute(0, 4, 1, 2, 3)` is a
+`channels_last_3d` NCDHW tensor (and through `permute(0, 3, 1, 2)` a
+`channels_last` NCHW one), so no copy is made on the way in or out.
 
 The TPU rewrites of the JAX module (s2d, im2col, z-decomposed and
 à-trous depthwise, depth-to-space transposed conv) compute the same
@@ -70,6 +72,34 @@ def depthwise_conv3d(x, w, bias=None, *, stride=1, padding="same",
                   dilation=dilation, groups=x.shape[-1])
 
 
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def conv2d(x, w, bias=None, *, stride=1, padding="same", dilation=1,
+           groups: int = 1):
+    """2D conv. x: (B, H, W, Cin); w: (Cout, Cin // groups, kh, kw).
+    `padding` is "same", an int or two ints (symmetric)."""
+    st = _tuple(stride, 2)
+    dil = _tuple(dilation, 2)
+    if padding == "same":
+        pad = tuple(lo for lo, _ in same_padding(tuple(w.shape[2:]), st, dil, 2))
+    else:
+        pad = _tuple(padding, 2)
+    return to_nhwc(F.conv2d(to_nchw(x), w, bias, st, pad, dil, groups))
+
+
+def depthwise_conv2d(x, w, bias=None, *, stride=1, padding="same",
+                     dilation=1):
+    """Depthwise 2D conv; w: (C, 1, kh, kw)."""
+    return conv2d(x, w, bias, stride=stride, padding=padding,
+                  dilation=dilation, groups=x.shape[-1])
+
+
 def conv_transpose(x, w, bias=None, *, stride):
     """Transposed 3D conv as torch's ConvTranspose3d with padding
     (k - s + 1) // 2 and output_padding 2p + s - k (MONAI
@@ -85,5 +115,6 @@ def conv_transpose(x, w, bias=None, *, stride):
     return to_ndhwc(y)
 
 
-__all__ = ["same_padding", "conv3d", "depthwise_conv3d", "conv_transpose",
+__all__ = ["same_padding", "conv2d", "depthwise_conv2d", "conv3d",
+           "depthwise_conv3d", "conv_transpose", "to_nchw", "to_nhwc",
            "to_ncdhw", "to_ndhwc"]

@@ -13,10 +13,11 @@ where the kernel accumulates with atomics), launches on the current stream
 and raises if the launch failed. On a CPU tensor it computes the plain
 PyTorch version instead, which autograd differentiates; on a CUDA tensor it
 launches the kernel or raises, and never falls back. On a CUDA tensor
-`deform_conv3d` and `dw_chain3d` are `torch.autograd.Function`s:
-`deform_conv3d`'s backward launches the backward kernel
-(`deform_conv3d_bwd`), `dw_chain3d`'s is the VJP of its plain version.
-`wrapper.launches` counts each kernel's launches.
+each forward wrapper is a `torch.autograd.Function`: `deform_conv3d`'s
+backward launches the backward kernel (`deform_conv3d_bwd`); those of
+`dw_chain3d`, `deform_dw_conv2d` and `dw_chain2d` are the VJPs of their
+plain versions, recomputed. `wrapper.launches` counts each kernel's
+launches.
 """
 
 from __future__ import annotations
@@ -31,8 +32,10 @@ from pathlib import Path
 
 import torch
 
+from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform_dw_conv2d_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_conv3d_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
+from deformablelka_tpu_torch.ops.lka import dw_chain2d as dw_chain2d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as dw_chain3d_plain
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -103,6 +106,10 @@ def library() -> ctypes.CDLL:
         lib.dlka_deform_conv3d_bwd.restype = i32
         lib.dlka_dw_chain3d.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
         lib.dlka_dw_chain3d.restype = i32
+        lib.dlka_deform_dw_conv2d.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.dlka_deform_dw_conv2d.restype = i32
+        lib.dlka_dw_chain2d.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.dlka_dw_chain2d.restype = i32
         lib.dlka_error_string.argtypes = [i32]
         lib.dlka_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -250,27 +257,32 @@ def _chain_forward(x, w_dw, b_dw, w_dil, b_dil):
     return y
 
 
-class _DwChain3d(torch.autograd.Function):
-    """Forward: the chain kernel. Backward: the VJP of the plain chain (two
-    depthwise `F.conv3d`, recomputed; cuDNN on the card), as the JAX package
-    differentiates its fused kernel (`lka_fused_kernel.py:252-255` `_c3_bwd`):
-    the JAX package has no backward kernel for the chain, so neither does the
-    port."""
+class _PlainVjp(torch.autograd.Function):
+    """Forward: `kernel(*inputs)`. Backward: the VJP of `plain(*inputs)`,
+    recomputed (cuDNN or PyTorch's own kernels on the card), as the JAX
+    package differentiates a plain form of its fused chains and of its 2D
+    deform kernel (`lka_fused_kernel.py` `_c3_bwd`/`_c2_bwd`,
+    `deform2d_kernel.py` `_bwd`): it has no backward kernel for them, and
+    the port's are later work (ROADMAP). For the 2D deform conv the plain
+    form is the gather, whose offset gradient at an integer offset is the
+    right derivative x(y0 + 1) − x(y0); the JAX window VJP gives 0 there."""
 
     @staticmethod
-    def forward(ctx, x, w_dw, b_dw, w_dil, b_dil):
-        ctx.save_for_backward(x, w_dw, b_dw, w_dil, b_dil)
-        return _chain_forward(x, w_dw, b_dw, w_dil, b_dil)
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        return kernel(*inputs)
 
     @staticmethod
     def backward(ctx, g):
         inputs = [t.detach().requires_grad_(need) for t, need
-                  in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+                  in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
         with torch.enable_grad():
-            y = dw_chain3d_plain(*inputs)
+            y = ctx.plain(*inputs)
         wanted = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad(y, wanted, g))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+        return (None, None, *(next(grads) if t.requires_grad else None
+                              for t in inputs))
 
 
 def dw_chain3d(x, w_dw, b_dw, w_dil, b_dil):
@@ -281,12 +293,100 @@ def dw_chain3d(x, w_dw, b_dw, w_dil, b_dil):
     """
     if not x.is_cuda:
         return dw_chain3d_plain(x, w_dw, b_dw, w_dil, b_dil)
-    return _DwChain3d.apply(x, w_dw, b_dw, w_dil, b_dil)
+    return _PlainVjp.apply(_chain_forward, dw_chain3d_plain,
+                           x, w_dw, b_dw, w_dil, b_dil)
 
 
 dw_chain3d.launches = 0
 
-WRAPPERS = (deform_conv3d, dw_chain3d, deform_conv3d_bwd)
+
+def _deform_dw_forward(x, offset, w, dil):
+    B, H, W, C = x.shape
+    dev = x.device
+    k = w.shape[0]
+    if k % 2 == 0 or dil < 1:
+        raise ValueError(f"deform_dw_conv2d kernel: odd k and dil >= 1 only, "
+                         f"got k {k}, dil {dil}")
+    _require(x, "x", (B, H, W, C), dev)
+    _require(offset, "offset", (B, H, W, 2 * k * k), dev)
+    _require(w, "w", (k, k, 1, C), dev)
+    if B * H * W * max(C, 2 * k * k) >= 2 ** 31:
+        raise ValueError("deform_dw_conv2d kernel: too many elements for int32 indices")
+    y = torch.empty_like(x)
+    err = library().dlka_deform_dw_conv2d(
+        x.data_ptr(), offset.data_ptr(), w.data_ptr(), y.data_ptr(),
+        B, H, W, C, k, dil, _stream())
+    _check(err, "deform_dw_conv2d")
+    deform_dw_conv2d.launches += 1
+    return y
+
+
+def deform_dw_conv2d(x, offset, w, dil: int = 1):
+    """Depthwise k×k deformable conv, stride 1, dilation `dil`, padding
+    (k // 2)·dil, one offset group, no bias; bilinear, zero outside the
+    image, exact for any offset.
+
+    x (B, H, W, C), offset (B, H, W, 2k²) with (Δy, Δx) per tap, taps
+    row-major, w (k, k, 1, C) → (B, H, W, C). Kernel: csrc/deform2d_dw.cu.
+    """
+    if not x.is_cuda:
+        return deform_dw_conv2d_plain(x, offset, w, dil)
+    return _PlainVjp.apply(
+        lambda *t: _deform_dw_forward(*t, dil),
+        lambda *t: deform_dw_conv2d_plain(*t, dil), x, offset, w)
+
+
+deform_dw_conv2d.launches = 0
+
+
+def chain2d_channel_tile(H: int, W: int, C: int) -> int:
+    """dw_chain2d keeps, per channel of its tile of CT, the haloed input
+    plane and the dw5 plane in shared memory; CT is the widest that keeps
+    that within 72 KB, else 1 channel within the 227 KB a block may hold."""
+    plane_bytes = 4 * ((H + 4) * (W + 4) + H * W)
+    for ct in (32, 16, 8, 4, 2):
+        if C % ct == 0 and plane_bytes * ct <= _CHAIN_SMEM_TARGET:
+            return ct
+    if plane_bytes <= _SMEM_MAX:
+        return 1
+    raise ValueError(f"dw_chain2d kernel: an {H}×{W} plane does not fit "
+                     "shared memory")
+
+
+def _chain2d_forward(x, w_dw, b_dw, w_dil, b_dil):
+    B, H, W, C = x.shape
+    dev = x.device
+    _require(x, "x", (B, H, W, C), dev)
+    _require(w_dw, "w_dw", (5, 5, 1, C), dev)
+    _require(b_dw, "b_dw", (C,), dev)
+    _require(w_dil, "w_dil", (7, 7, 1, C), dev)
+    _require(b_dil, "b_dil", (C,), dev)
+    ct = chain2d_channel_tile(H, W, C)
+    y = torch.empty_like(x)
+    err = library().dlka_dw_chain2d(
+        x.data_ptr(), w_dw.data_ptr(), b_dw.data_ptr(), w_dil.data_ptr(),
+        b_dil.data_ptr(), y.data_ptr(), B, H, W, C, ct, _stream())
+    _check(err, "dw_chain2d")
+    dw_chain2d.launches += 1
+    return y
+
+
+def dw_chain2d(x, w_dw, b_dw, w_dil, b_dil):
+    """dw5² (pad 2) + bias → dw7² dilation 3 (pad 9) + bias, fused.
+
+    x (B, H, W, C), w_dw (5, 5, 1, C), b_dw (C,), w_dil (7, 7, 1, C),
+    b_dil (C,) → (B, H, W, C). Kernel: csrc/dw_chain2d.cu.
+    """
+    if not x.is_cuda:
+        return dw_chain2d_plain(x, w_dw, b_dw, w_dil, b_dil)
+    return _PlainVjp.apply(_chain2d_forward, dw_chain2d_plain,
+                           x, w_dw, b_dw, w_dil, b_dil)
+
+
+dw_chain2d.launches = 0
+
+WRAPPERS = (deform_conv3d, dw_chain3d, deform_conv3d_bwd, deform_dw_conv2d,
+            dw_chain2d)
 
 
 def reset_launches() -> None:

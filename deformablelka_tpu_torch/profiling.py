@@ -1,5 +1,5 @@
-"""A device-time breakdown of one run on the card, shared by the main path
-and the training path: `torch.profiler` records the run, and its CUDA
+"""A device-time breakdown of one run on the card, shared by the main path,
+the training path and the 2D path: `torch.profiler` records the run, and its CUDA
 kernels are summed by name and by class (the hand kernels, cuDNN/cuBLAS,
 the rest).
 """
@@ -19,6 +19,10 @@ def kernel_class(name: str) -> str:
         return "deform_conv3d (hand kernel)"
     if "dw_chain3d_kernel" in name:
         return "dw_chain3d (hand kernel)"
+    if "deform_dw_conv2d_kernel" in name:
+        return "deform_dw_conv2d (hand kernel)"
+    if "dw_chain2d_kernel" in name:
+        return "dw_chain2d (hand kernel)"
     low = name.lower()
     if any(s in low for s in ("conv", "cudnn", "xmma", "implicit", "gemm",
                               "sm90", "cutlass", "wgrad", "dgrad")):

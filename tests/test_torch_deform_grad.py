@@ -130,8 +130,13 @@ def test_chain_function_backward_is_the_plain_vjp():
             ((2, 4, 6, 5, C), (5, 5, 5, 1, C), (C,), (7, 7, 7, 1, C), (C,))]
     g = _t(rng.randn(2, 4, 6, 5, C).astype(np.float32))
     need = (True, True, False, True, True)
-    ctx = SimpleNamespace(saved_tensors=tuple(args), needs_input_grad=need)
-    got = kernels._DwChain3d.backward(ctx, g)
+    # the wrapper's Function takes (kernel, plain, *inputs): two leading
+    # non-tensor arguments without gradients
+    ctx = SimpleNamespace(saved_tensors=tuple(args), plain=dw_chain3d,
+                          needs_input_grad=(False, False) + need)
+    got = kernels._PlainVjp.backward(ctx, g)
+    assert got[:2] == (None, None)
+    got = got[2:]
     leaves = [a.clone().requires_grad_(n) for a, n in zip(args, need)]
     ref = torch.autograd.grad(dw_chain3d(*leaves), [l for l in leaves if l.requires_grad], g)
     assert got[2] is None

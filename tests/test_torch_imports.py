@@ -26,9 +26,11 @@ sys.exit(1 if bad else 0)
 
 def test_port_modules_are_listed():
     for name in ("ops.kernels", "training.losses", "training.train_step",
-                 "train_path", "main_path", "profiling"):
+                 "train_path", "main_path", "profiling", "ops.deform2d",
+                 "nn.lka2d", "models.maxvit", "models.maxvit_dlka",
+                 "evaluation.metrics", "inference.predictor2d", "main_path2d"):
         assert f"deformablelka_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 18
+    assert len(MODULES) >= 26
 
 
 @pytest.mark.parametrize("names", [MODULES, ["chip_smoke"]],

@@ -14,12 +14,16 @@ from unittest import mock
 import pytest
 import torch
 
+from deformablelka_tpu_torch import main_path2d
 from deformablelka_tpu_torch.models.dlka_former import dlka_former_synapse
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d, LKA3dDeform
 from deformablelka_tpu_torch.nn.layers import init_parameters
+from deformablelka_tpu_torch.nn.lka2d import deformableLKABlock, LKABlock
 from deformablelka_tpu_torch.ops import kernels
+from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform2d_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
+from deformablelka_tpu_torch.ops.lka import dw_chain2d as chain2d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
 
 pytestmark = pytest.mark.cuda
@@ -165,3 +169,110 @@ def test_gate_gradients_on_the_card_match_the_plain_path(cuda, gate):
         _close(got[name], ref[name])
     assert got["conv_offset.weight" if gate is DeformConvPack3d
                else "deform_conv.conv_offset.weight"].abs().max() > 0
+
+
+def _offsets_2d(shape, gen):
+    """Offsets uniform in ±2.5, a quarter of them exact integers (0 among
+    them)."""
+    off = (torch.rand(shape, device="cuda", generator=gen) * 2 - 1) * 2.5
+    pick = torch.rand(shape, device="cuda", generator=gen)
+    return torch.where(pick < 0.25, off.round(), off)
+
+
+@pytest.mark.parametrize("B,H,W,C,k,dil", [
+    (24, 14, 14, 384, 5, 1), (24, 14, 14, 384, 7, 3), (24, 28, 28, 192, 7, 3),
+    (4, 56, 56, 96, 5, 1), (4, 56, 56, 96, 7, 3), (1, 9, 13, 5, 5, 1),
+    (2, 7, 5, 40, 7, 3), (1, 10, 12, 33, 3, 2)])
+def test_deform_dw_kernel_matches_plain(cuda, B, H, W, C, k, dil):
+    x = torch.randn(B, H, W, C, device="cuda", generator=cuda)
+    off = _offsets_2d((B, H, W, 2 * k * k), cuda)
+    w = torch.randn(k, k, 1, C, device="cuda", generator=cuda) / k
+    before = kernels.deform_dw_conv2d.launches
+    got = kernels.deform_dw_conv2d(x, off, w, dil)
+    assert kernels.deform_dw_conv2d.launches == before + 1
+    _close(got, deform2d_plain(x, off, w, dil))
+
+
+@pytest.mark.parametrize("B,H,W,C", [(24, 14, 14, 384), (24, 28, 28, 192),
+                                     (4, 56, 56, 96), (1, 5, 7, 3),
+                                     (2, 20, 31, 6), (1, 100, 90, 2)])
+def test_chain2d_kernel_matches_plain(cuda, B, H, W, C):
+    x = torch.randn(B, H, W, C, device="cuda", generator=cuda)
+    w5 = torch.randn(5, 5, 1, C, device="cuda", generator=cuda) / 5
+    w7 = torch.randn(7, 7, 1, C, device="cuda", generator=cuda) / 7
+    b5 = torch.randn(C, device="cuda", generator=cuda)
+    b7 = torch.randn(C, device="cuda", generator=cuda)
+    before = kernels.dw_chain2d.launches
+    got = kernels.dw_chain2d(x, w5, b5, w7, b7)
+    assert kernels.dw_chain2d.launches == before + 1
+    _close(got, chain2d_plain(x, w5, b5, w7, b7))
+
+
+def test_2d_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(1, 6, 6, 8, device="cuda")
+    off = torch.zeros(1, 6, 6, 50, device="cuda")
+    w = torch.zeros(5, 5, 1, 8, device="cuda")
+    with pytest.raises(ValueError):
+        kernels.deform_dw_conv2d(x.transpose(1, 2), off, w, 1)
+    with pytest.raises(TypeError):
+        kernels.deform_dw_conv2d(x.double(), off, w, 1)
+    with pytest.raises(ValueError):
+        kernels.deform_dw_conv2d(x, off[..., :18], w, 1)
+    with pytest.raises(ValueError):
+        kernels.deform_dw_conv2d(x, torch.zeros(1, 6, 6, 32, device="cuda"),
+                                 torch.zeros(4, 4, 1, 8, device="cuda"), 1)
+    w5, w7, b = (torch.zeros(5, 5, 1, 8, device="cuda"),
+                 torch.zeros(7, 7, 1, 8, device="cuda"),
+                 torch.zeros(8, device="cuda"))
+    with pytest.raises(ValueError):
+        kernels.dw_chain2d(x, w5, b, w5, b)
+    with pytest.raises(ValueError):
+        kernels.dw_chain2d(x, w5, b.cpu(), w7, b)
+    with pytest.raises(ValueError):  # one channel's planes exceed shared memory
+        kernels.dw_chain2d(torch.zeros(1, 200, 200, 1, device="cuda"),
+                           w5[..., :1], b[:1], w7[..., :1], b[:1])
+
+
+@pytest.mark.parametrize("block", [deformableLKABlock, LKABlock])
+def test_2d_block_gradients_on_the_card_match_the_plain_path(cuda, block):
+    """One backward through an LKA block: every parameter (and the input)
+    gets the gradient of the plain path, with offsets past ±1."""
+    C = 32
+    m = block(C)
+    init_parameters(m, torch.Generator().manual_seed(0))
+    main_path2d.drive_gates_2d(m, seed=1)
+    m = m.cuda()
+    x = torch.randn(2, 14, 12, C, device="cuda", generator=cuda)
+    gy = torch.randn(2, 14, 12, C, device="cuda", generator=cuda)
+
+    def grads():
+        m.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        m(xi).backward(gy)
+        return {"input": xi.grad, **{n: p.grad for n, p in m.named_parameters()}}
+
+    before = kernels.deform_dw_conv2d.launches + kernels.dw_chain2d.launches
+    got = grads()
+    assert kernels.deform_dw_conv2d.launches + kernels.dw_chain2d.launches == before + (
+        2 if block is deformableLKABlock else 1)
+    with mock.patch.object(kernels, "deform_dw_conv2d", deform2d_plain), \
+            mock.patch.object(kernels, "dw_chain2d", chain2d_plain):
+        ref = grads()
+    assert sorted(got) == sorted(ref)
+    for name in ref:
+        assert got[name] is not None and ref[name] is not None, name
+        _close(got[name], ref[name])
+
+
+@pytest.mark.parametrize("config", list(main_path2d.CONFIGS))
+def test_2d_models_on_the_card_match_the_cpu_and_count_launches(cuda, config):
+    gpu, _ = main_path2d.build(config, seed=0, img_size=64)
+    cpu, _ = main_path2d.build(config, seed=0, device="cpu", img_size=64)
+    x = torch.randn(2, 64, 64, 1)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = gpu(x.cuda()).cpu()
+        ref = cpu(x)
+    counts = {n: getattr(kernels, n).launches for n in ("deform_dw_conv2d", "dw_chain2d")}
+    assert counts == main_path2d.LAUNCHES_PER_FORWARD[config]
+    _close(got, ref)
