@@ -65,7 +65,20 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    on the CPU;
 11. the 2D flagship's batch-1 224² latency in f32: CUDA events over 100
    back-to-back forwards after 10 warm-up forwards, and the host-clock
-   mean ± std of 100 synchronised forwards.
+   mean ± std of 100 synchronised forwards;
+12. the dilated 3D depthwise kernel against its plain version at the two
+   shapes where the size-aware gates run it, 8³×128 (5³ dil 3) and 4³×256
+   (3³ dil 2), batch 8, TF32 off: max|err| against the stated tolerance,
+   and the kernel's, the plain version's, one `F.conv3d(groups=C)`'s and
+   the bound's times;
+13. the size-aware path: phase 4's protocol, volume and gate driving with
+   `main_path.build(trans_block="TransformerBlock_Deform_LKA_Spatial_sequential")`:
+   s/volume, peak device memory, launches (exactly 168 deform convs, 96
+   chains and 72 dilated depthwise convs, none of the others), then the
+   same run through the plain versions: labels equal on ≥ 0.999 of voxels;
+14. the Channel-sequential Synapse model, the ACDC model and the Pancreas
+   model at small size, batch 2, on the card against the same model on
+   the CPU, as phase 3.
 
 Then one JSON line of the kernels' numbers and, last, the contract line
 {"ok": true, "device": {...}}. Any failure exits nonzero before it.
@@ -85,8 +98,11 @@ import torch.nn.functional as F
 from deformablelka_tpu_torch import main_path, main_path2d, train_path
 from deformablelka_tpu_torch.grad_floor import plain_versions
 from deformablelka_tpu_torch.inference.predictor2d import benchmark_inference_speed
-from deformablelka_tpu_torch.main_path import BLOCKS, PATCH, TILES, VOLUME
-from deformablelka_tpu_torch.models.dlka_former import dlka_former_synapse
+from deformablelka_tpu_torch.main_path import (BLOCKS, LAUNCHES_PER_FORWARD, PATCH,
+                                              SIZE_AWARE, TILES, VOLUME)
+from deformablelka_tpu_torch.models.dlka_former import (dlka_former_acdc,
+                                                        dlka_former_synapse,
+                                                        dlka_net_pancreas)
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d
 from deformablelka_tpu_torch.nn.lka2d import DeformConv
 from deformablelka_tpu_torch.ops import kernels
@@ -94,8 +110,10 @@ from deformablelka_tpu_torch.ops.convs import to_nchw, to_ncdhw
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform2d_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward as deform_bwd_plain
+from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated as dw_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain2d as chain2d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
+from deformablelka_tpu_torch.profiling import device_profile
 
 # (spatial size, channels, transformer blocks at that stage) on the main path
 STAGES = ((32, 32, 6), (16, 64, 6), (8, 128, 6), (4, 256, 3))
@@ -105,6 +123,10 @@ STAGES = ((32, 32, 6), (16, 64, 6), (8, 128, 6), (4, 256, 3))
 DECODER = ((14, 384), (28, 192), (56, 96))
 BATCH_2D = main_path2d.SLICE_BATCH
 DEFORM_SITES = ((5, 1), (7, 3))  # (k, dilation)
+# (spatial size, channels, K, dilation, launches per forward) of the dilated
+# depthwise conv on the size-aware path: encoder stage 2 and decoder5 at
+# 8³×128, encoder stage 3 at 4³×256, three blocks each
+DW_SITES = ((8, 128, 5, 3, 6), (4, 256, 3, 2, 3))
 BATCH = 8
 TRAIN_BATCH = train_path.BATCH
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
@@ -223,29 +245,46 @@ def phase_kernels():
     return rows
 
 
-def phase_small_reference():
-    """The CUDA model against the same model on the CPU, small input."""
-    img = (16, 32, 32)
+def phase_small_reference(phase=3, factory=dlka_former_synapse, img=(16, 32, 32),
+                          num_classes=14, **kw):
+    """The CUDA model against the same model on the CPU, small input; the
+    CUDA forward's launches."""
     models = {}
     for dev in ("cuda", "cpu"):
-        models[dev] = dlka_former_synapse(14, do_ds=False, img_size=img, seed=0,
-                                          device=dev)
+        models[dev] = factory(num_classes, do_ds=False, img_size=img, seed=0,
+                              device=dev, **kw)
         main_path.drive_gates(models[dev], seed=7)
     x = torch.from_numpy(np.random.RandomState(3).randn(2, *img, 1).astype(np.float32))
     with torch.no_grad():
         ref = models["cpu"](x)
+        kernels.reset_launches()
         got = models["cuda"](x.cuda()).cpu()
+    launches = launch_counts()
     err = (got - ref).abs().max().item()
     tol = 1e-3 * max(1.0, ref.abs().max().item())
-    print(f"phase 3 small input {img} B=2: CUDA model vs CPU model max|err| "
-          f"{err:.3e} (tol {tol:.3e}), finite {bool(torch.isfinite(got).all())}",
-          flush=True)
+    print(f"phase {phase} {factory.__name__}{kw or ''} small input {img} B=2: CUDA "
+          f"model vs CPU model max|err| {err:.3e} (tol {tol:.3e}), finite "
+          f"{bool(torch.isfinite(got).all())}, launches {launches}", flush=True)
     if not (err <= tol and torch.isfinite(got).all()):
-        fail("the CUDA model disagrees with the CPU model on a small input")
+        fail(f"the CUDA model {factory.__name__}{kw or ''} disagrees with the CPU "
+             "model on a small input")
+    return launches
 
 
-def phase_main_path():
-    model, sw = main_path.build(seed=0)
+def phase_small_configs():
+    """Phase 14: the other 3D configurations, card against CPU."""
+    seq = phase_small_reference(
+        14, trans_block="TransformerBlock_Deform_LKA_Channel_sequential")
+    if seq["dwconv3d"] != 9:
+        fail(f"the Channel-sequential forward launched dwconv3d {seq['dwconv3d']} times")
+    phase_small_reference(14, dlka_former_acdc, (8, 64, 64), 4)
+    phase_small_reference(14, dlka_net_pancreas, (32, 32, 32), 2)
+
+
+def phase_main_path(phase=4, trans_block=main_path.DEFAULT_BLOCK, expected=None):
+    """The main path with `trans_block`; `expected`: its launches per
+    forward (the published block: one of each 3D forward kernel per block)."""
+    model, sw = main_path.build(seed=0, trans_block=trans_block)
     vol = main_path.volume(seed=0)
     offsets_seen = []
 
@@ -265,11 +304,11 @@ def phase_main_path():
     wall = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"phase 4 main path: predict_segmentation {VOLUME} patch {PATCH}, "
-          f"{TILES} tiles x 8 flips: {wall:.3f} s wall, peak device memory "
-          f"{peak / 2**30:.3f} GiB, launches {launches}", flush=True)
-    expected = {"deform_conv3d": BLOCKS * TILES, "dw_chain3d": BLOCKS * TILES,
-                "deform_conv3d_bwd": 0, "deform_dw_conv2d": 0, "dw_chain2d": 0}
+    print(f"phase {phase} main path {trans_block}: predict_segmentation {VOLUME} "
+          f"patch {PATCH}, {TILES} tiles x 8 flips: {wall:.3f} s wall, peak device "
+          f"memory {peak / 2**30:.3f} GiB, launches {launches}", flush=True)
+    per_forward = expected or {"deform_conv3d": BLOCKS, "dw_chain3d": BLOCKS}
+    expected = {n: TILES * per_forward.get(n, 0) for n in launches}
     if launches != expected:
         fail(f"main path launches {launches}, expected {expected}")
     if seg.shape != VOLUME or seg.dtype != np.uint8 or seg.max() >= 14:
@@ -287,7 +326,7 @@ def phase_main_path():
     agree = float((seg == seg_plain).mean())
     max_off = max(m for m, _ in offsets_seen)
     past_one = float(np.mean([s for _, s in offsets_seen]))
-    print(f"phase 4 main path vs plain versions: label agreement {agree:.6f} "
+    print(f"phase {phase} main path vs plain versions: label agreement {agree:.6f} "
           f"(min {MIN_AGREEMENT}), plain run {wall_plain:.3f} s; offsets max|Δ| "
           f"{max_off:.3f}, mean share |Δ|>1 {past_one:.4f}; classes in seg "
           f"{np.unique(seg).size}", flush=True)
@@ -648,6 +687,62 @@ def phase_2d_latency():
     return device_ms
 
 
+def in_volume_taps(S: int, K: int, dil: int) -> int:
+    """Σ over the voxels of an S³ volume of the taps of a K³ dilated
+    stencil that fall inside it: the multiply-adds the conv needs (a tap
+    outside reads the zero padding)."""
+    per_axis = sum(0 <= z + (k - K // 2) * dil < S for z in range(S) for k in range(K))
+    return per_axis ** 3
+
+
+def phase_dwconv3d_kernel():
+    """The dilated depthwise kernel against its plain version at the
+    size-aware gates' two shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1357)
+    rows = []
+    for S, C, K, dil, sites in DW_SITES:
+        V = S ** 3
+        x = torch.randn(BATCH, S, S, S, C, device=dev, generator=g)
+        w = torch.randn(K, K, K, 1, C, device=dev, generator=g) / K ** 1.5
+        b = torch.randn(C, device=dev, generator=g) * 0.1
+        ref = dw_plain(x, w, b, dil)
+        got = kernels.dwconv3d(x, w, b, dil)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        tol = REL_TOL * max(1.0, ref.abs().max().item())
+        ms = timed_ms(lambda: kernels.dwconv3d(x, w, b, dil), 50)
+        pms = timed_ms(lambda: dw_plain(x, w, b, dil), 50)
+        # the library call: one depthwise F.conv3d on an NCDHW tensor
+        xn = to_ncdhw(x).contiguous()
+        wn = w.permute(4, 3, 0, 1, 2).contiguous()
+        lms = timed_ms(lambda: F.conv3d(xn, wn, b, padding=dil * (K // 2),
+                                        dilation=dil, groups=C), 50)
+        # the kernel alone: its device time under torch.profiler (at these
+        # sizes the wrapper's host time per call exceeds it)
+        prof = device_profile(lambda: [kernels.dwconv3d(x, w, b, dil) for _ in range(50)])
+        dms = prof["by_class"]["dwconv3d (hand kernel)"] / 50
+        # read x, w and b once, write y once; a multiply-add per channel for
+        # each tap inside the volume, and the bias
+        n_bytes = 4 * (2 * BATCH * V * C + K ** 3 * C + C)
+        flops = BATCH * C * (2 * in_volume_taps(S, K, dil) + V)
+        bnd = bound_ms(n_bytes, flops)
+        bms, by = _bound(bnd)
+        rows.append(dict(S=S, C=C, sites=sites, err=err, tol=tol, ms=ms,
+                         plain_ms=pms, lib_ms=lms, device_ms=dms, **bnd))
+        print(f"phase 12 dwconv3d B={BATCH} {S}^3 C={C} K={K} dil={dil}: max|err| "
+              f"{err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms through the wrapper "
+              f"({dms:.4f} ms of device time), plain {pms:.4f} ms, "
+              f"F.conv3d {lms:.4f} ms, bound {bms:.4f} ms ({by}; taps inside the "
+              f"volume {in_volume_taps(S, K, dil) / (V * K ** 3):.3f} of all)",
+              flush=True)
+        if not err <= tol:
+            fail(f"dwconv3d disagrees with its plain version at {S}^3 C={C}")
+        del x, xn, ref, got
+        torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_line(rows, launches):
     """rows[name]: the per-stage measurements; launches[name]: counts by path."""
     sources = {"deform_conv3d": ("deformablelka_tpu_torch/csrc/deform3d.cu",
@@ -659,12 +754,15 @@ def kernel_line(rows, launches):
                "deform_dw_conv2d": ("deformablelka_tpu_torch/csrc/deform2d_dw.cu",
                                     "deformablelka_tpu/ops/pallas/deform2d_kernel.py:182"),
                "dw_chain2d": ("deformablelka_tpu_torch/csrc/dw_chain2d.cu",
-                              "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:261")}
+                              "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:261"),
+               "dwconv3d": ("deformablelka_tpu_torch/csrc/dwconv3d.cu",
+                            "deformablelka_tpu/ops/pallas/dwconv3d_kernel.py:172")}
     per = {"deform_conv3d": "one forward at batch 8: the 21 launches at the four stage shapes",
            "dw_chain3d": "one forward at batch 8: the 21 launches at the four stage shapes",
            "deform_conv3d_bwd": "one training step at batch 2: the 21 launches at the four stage shapes",
            "deform_dw_conv2d": "one flagship forward at batch 24: the 12 launches at the three decoder shapes",
-           "dw_chain2d": "one LKA Baseline forward at batch 24: the 6 launches at the three decoder shapes"}
+           "dw_chain2d": "one LKA Baseline forward at batch 24: the 6 launches at the three decoder shapes",
+           "dwconv3d": "one forward at batch 8: the 9 launches at 8³×128 (5³ dil 3) and 4³×256 (3³ dil 2)"}
     out = []
     for name, rs in rows.items():
         per_call = lambda key: sum(r["sites"] * r[key] for r in rs)
@@ -681,6 +779,8 @@ def kernel_line(rows, launches):
             "library_ms": None if rs[0]["lib_ms"] is None else per_call("lib_ms"),
             "per": per[name],
         })
+        if "device_ms" in rs[0]:
+            out[-1]["device_ms"] = per_call("device_ms")
     return {"kernels": out}
 
 
@@ -703,10 +803,14 @@ def main() -> int:
     launches_2d, _ = phase_2d_path()
     phase_2d_small_reference()
     phase_2d_latency()
+    rows["dwconv3d"] = phase_dwconv3d_kernel()
+    launches_sa, _ = phase_main_path(13, SIZE_AWARE, LAUNCHES_PER_FORWARD[SIZE_AWARE])
+    phase_small_configs()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernel_line(rows, {
         "inference main path": launches, "training path, 3 steps": train_launches,
-        **{f"2D path {c}": n for c, n in launches_2d.items()}})), flush=True)
+        **{f"2D path {c}": n for c, n in launches_2d.items()},
+        "size-aware main path": launches_sa})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

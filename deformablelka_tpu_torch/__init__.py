@@ -1,7 +1,8 @@
 """deformablelka_tpu_torch — D-LKA Net in PyTorch for NVIDIA Hopper.
 
 A port of the JAX package `deformablelka_tpu`, module for module: the 3D
-D-LKA Former (inference and training) and the 2D MaxViT D-LKA Net
+D-LKA Former (inference and training) with its block-variant registry and
+its Synapse, ACDC and Pancreas configurations, and the 2D MaxViT D-LKA Net
 (slice inference). Tensors are channels-last ((B, D, H, W, C) or (B, H,
 W, C)) at every public function, as in the JAX package, and module
 attributes keep the upstream torch names, so a state_dict converts with
@@ -15,7 +16,9 @@ at first use (`ops/kernels.py`):
 - `ops.kernels.dw_chain3d`: the fused dw5³ → dw7³-dil3 LKA chain;
 - `ops.kernels.deform_dw_conv2d`: the exact bilinear depthwise 2D
   deformable conv;
-- `ops.kernels.dw_chain2d`: the fused dw5² → dw7²-dil3 LKA chain.
+- `ops.kernels.dw_chain2d`: the fused dw5² → dw7²-dil3 LKA chain;
+- `ops.kernels.dwconv3d`: the dilated depthwise K³ conv of the
+  size-aware gates.
 
 Each has a plain PyTorch version beside it, which a CPU tensor takes.
 Importing this package imports nothing but torch, numpy and scipy.

@@ -11,9 +11,15 @@ and `convert_maxvit_dlka`:
 - module paths: the JAX names that differ from upstream's torch names are
   renamed (`encoder/stage0_block1` → `d_lka_former_encoder.stages.0.1`,
   `backbone/stage0_block1` → `backbone.backbone.stages.0.blocks.1`,
-  `conv8` → `conv8.1`, `mlp_fc1` → `mlp.fc1`, …); where a name has two
-  renames, the one that names a submodule of `module` is taken. A layer
-  that MONAI wraps in a `Convolution` (a Sequential whose one child is
+  `conv8` → `conv8.1`, `mlp_fc1` → `mlp.fc1`, …); of a name's renames and
+  then the name itself, the first that names a submodule of `module` is
+  taken. The 3D block variants' block-level names go into upstream's
+  `epa_block` (`attn` → `epa_block`, `lka` → `epa_block.lka`,
+  `fuse_norm`/`fuse_norm2` → `epa_block.norm`/`norm2`,
+  `out_proj`/`out_proj2` and the leaf `temperature2` → `epa_block.*`),
+  `se_fc1` → `se.fc1`, the 3D conv-gate's `conv` → `deform_conv`, and the
+  2D-slice block's `conv0`, `conv_spatial`, `conv1` →
+  `spatial_gating_unit.*`. A layer that MONAI wraps in a `Convolution` (a Sequential whose one child is
   `conv`) gets its `.conv`; MaxViT's `BNAct/bn` is the BNAct itself;
 - leaves: `scale` → `weight`, `ls1` → `ls1.gamma`, `deform_conv_weight`
   → `deform_conv.weight`; batch stats `mean`/`var` →
@@ -49,11 +55,20 @@ _RENAMES = (
     (r"final_norm", "norm"),
     (r"mlp_fc(\d)", r"mlp.fc\1"),
     (r"bn", ""),
+    (r"attn", "epa_block"),
+    (r"(lka|out_proj2?)", r"epa_block.\1"),
+    (r"fuse_norm", "epa_block.norm"),
+    (r"fuse_norm2", "epa_block.norm2"),
+    (r"se_fc(\d)", r"se.fc\1"),
+    (r"conv", "deform_conv"),
+    (r"(conv0|conv_spatial|conv1)", r"spatial_gating_unit.\1"),
 )
-_LEAVES = {"params": {"scale": "weight", "ls1": "ls1.gamma",
-                      "ls2": "ls2.gamma",
-                      "deform_conv_weight": "deform_conv.weight"},
-           "batch_stats": {"mean": "running_mean", "var": "running_var"}}
+# leaf renames; where a leaf has several, the first whose owner has it
+_LEAVES = {"params": {"scale": ("weight",), "ls1": ("ls1.gamma",),
+                      "ls2": ("ls2.gamma",),
+                      "deform_conv_weight": ("deform_conv.weight",),
+                      "temperature2": ("epa_block.temperature2", "temperature2")},
+           "batch_stats": {"mean": ("running_mean",), "var": ("running_var",)}}
 
 
 def _walk(tree, prefix=()) -> Iterator[Tuple[tuple, np.ndarray]]:
@@ -78,7 +93,7 @@ def _resolve(module: nn.Module, parts: tuple) -> Tuple[list, nn.Module]:
     names, m = [], module
     for p in parts:
         cands = [re.sub(pat, repl, p) for pat, repl in _RENAMES
-                 if re.fullmatch(pat, p)] or [p]
+                 if re.fullmatch(pat, p)] + [p]
         for cand in cands:
             sub = _descend(m, cand)
             if sub is not None:
@@ -111,8 +126,17 @@ def state_dict_from_jax(variables: Dict, module: nn.Module) -> Dict[str, torch.T
     sd = {}
     for collection, leaves in _LEAVES.items():
         for parts, arr in _walk(variables.get(collection, {})):
-            *sub, leaf = leaves.get(parts[-1], parts[-1]).split(".")
-            names, owner = _resolve(module, parts[:-1] + tuple(sub))
+            for cand in leaves.get(parts[-1], (parts[-1],)):
+                *sub, leaf = cand.split(".")
+                try:
+                    names, owner = _resolve(module, parts[:-1] + tuple(sub))
+                except KeyError:
+                    continue
+                if hasattr(owner, leaf):
+                    break
+            else:
+                raise KeyError(f"{'/'.join(parts)}: no parameter in "
+                               f"{type(module).__name__}")
             sd[".".join(names + [leaf])] = torch.tensor(
                 _layout(owner, leaf, arr), dtype=torch.float32)
     return sd

@@ -39,7 +39,7 @@ import torch
 
 from deformablelka_tpu_torch import train_path
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d
-from deformablelka_tpu_torch.ops import deform2d, deform3d, kernels, lka
+from deformablelka_tpu_torch.ops import deform2d, deform3d, dwconv3d, kernels, lka
 from deformablelka_tpu_torch.ops.convs import to_ncdhw
 
 SCALE = 1 + 1e-7
@@ -55,6 +55,8 @@ def plain_versions():
     stack.enter_context(mock.patch.object(kernels, "deform_dw_conv2d",
                                           deform2d.deform_dw_conv2d))
     stack.enter_context(mock.patch.object(kernels, "dw_chain2d", lka.dw_chain2d))
+    stack.enter_context(mock.patch.object(kernels, "dwconv3d",
+                                          dwconv3d.depthwise_conv3d_dilated))
     return stack
 
 

@@ -1,7 +1,10 @@
 """The 3D D-LKA Former, channels-last (B, D, H, W, C).
 
-Port of `Encoder`, `UpBlock`, `DLKAFormer` and `dlka_former_synapse` in
-`deformablelka_tpu/models/dlka_former.py`. Attribute names are upstream's
+Port of `Encoder`, `UpBlock`, `DLKAFormer` and the three configurations
+`dlka_former_synapse`, `dlka_former_acdc` and `dlka_net_pancreas` in
+`deformablelka_tpu/models/dlka_former.py`. `trans_block` names the
+transformer block of every encoder stage and up-block, from the registry
+`nn.transformer3d.TRANSFORMER_BLOCKS`. Attribute names are upstream's
 (`d_lka_former_encoder.downsample_layers`, `.stages`, `encoder1`,
 `decoder5`…`decoder2`, `out1`…`out3`), so `state_dict()` converts with
 `deformablelka_tpu.convert.torch_loader.convert_dlka_former`.
@@ -25,8 +28,13 @@ from torch.utils.checkpoint import checkpoint
 from deformablelka_tpu_torch.nn.dynunet import UnetOutBlock, UnetResBlock
 from deformablelka_tpu_torch.nn.layers import Conv3d, ConvTranspose, init_parameters
 from deformablelka_tpu_torch.nn.norms import GroupNorm
-from deformablelka_tpu_torch.nn.transformer3d import (
-    TransformerBlock_3D_single_deform_LKA as Block)
+from deformablelka_tpu_torch.nn.transformer3d import DEFAULT_BLOCK, TRANSFORMER_BLOCKS
+
+# The blocks' token-attention sizes, as the JAX package's defaults: E's
+# projection per encoder stage and in the up-blocks, and the heads.
+PROJ_SIZES = (64, 64, 64, 32)
+PROJ_SIZE = 64
+NUM_HEADS = 4
 
 
 def _run_blocks(blocks: nn.Sequential, x, remat: bool):
@@ -49,8 +57,10 @@ class Encoder(nn.Module):
 
     def __init__(self, in_channels: int, dims: Sequence[int],
                  depths: Sequence[int], input_sizes: Sequence[int],
-                 patch_size, remat: bool = False):
+                 patch_size, remat: bool = False,
+                 trans_block: str = DEFAULT_BLOCK):
         super().__init__()
+        Block = TRANSFORMER_BLOCKS[trans_block]
         self.remat = remat
         self.downsample_layers = nn.ModuleList()
         self.downsample_layers.append(nn.Sequential(
@@ -63,8 +73,8 @@ class Encoder(nn.Module):
                                 bias=False)),
                 GroupNorm(dims[i - 1], dims[i])))
         self.stages = nn.ModuleList(
-            nn.Sequential(*[Block(input_sizes[i], dims[i])
-                            for _ in range(depths[i])])
+            nn.Sequential(*[Block(input_sizes[i], dims[i], PROJ_SIZES[i],
+                                  NUM_HEADS) for _ in range(depths[i])])
             for i in range(4))
 
     def forward(self, x):
@@ -81,7 +91,8 @@ class UpBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  upsample_kernel_size, out_size: int, depth: int = 3,
-                 conv_decoder: bool = False, remat: bool = False):
+                 conv_decoder: bool = False, remat: bool = False,
+                 trans_block: str = DEFAULT_BLOCK):
         super().__init__()
         self.conv_decoder, self.remat = conv_decoder, remat
         self.transp_conv = _wrapped(ConvTranspose(
@@ -91,8 +102,9 @@ class UpBlock(nn.Module):
             block = UnetResBlock(out_channels, out_channels, 3, 1,
                                  norm_name="instance")
         else:
-            block = nn.Sequential(*[Block(out_size, out_channels)
-                                    for _ in range(depth)])
+            Block = TRANSFORMER_BLOCKS[trans_block]
+            block = nn.Sequential(*[Block(out_size, out_channels, PROJ_SIZE,
+                                          NUM_HEADS) for _ in range(depth)])
         self.decoder_block = nn.ModuleList([block])
 
     def forward(self, x, skip):
@@ -110,19 +122,21 @@ class DLKAFormer(nn.Module):
                  img_size=(64, 128, 128), patch_size=(2, 4, 4),
                  feature_size: int = 16, depths=(3, 3, 3, 3),
                  dims=(32, 64, 128, 256), do_ds: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, trans_block: str = DEFAULT_BLOCK):
         super().__init__()
         self.do_ds = do_ds
         s = [img_size[i] // patch_size[i] for i in range(3)]
         input_sizes = [math.prod(v // 2 ** i for v in s) for i in range(4)]
         fs = feature_size
-        self.d_lka_former_encoder = Encoder(in_channels, dims, depths,
-                                            input_sizes, patch_size, remat)
+        self.d_lka_former_encoder = Encoder(
+            in_channels, dims, depths, input_sizes, patch_size, remat,
+            trans_block)
+        up = dict(remat=remat, trans_block=trans_block)
         self.encoder1 = UnetResBlock(in_channels, fs, 3, 1,
                                      norm_name="instance")
-        self.decoder5 = UpBlock(dims[3], fs * 8, 2, input_sizes[2], remat=remat)
-        self.decoder4 = UpBlock(fs * 8, fs * 4, 2, input_sizes[1], remat=remat)
-        self.decoder3 = UpBlock(fs * 4, fs * 2, 2, input_sizes[0], remat=remat)
+        self.decoder5 = UpBlock(dims[3], fs * 8, 2, input_sizes[2], **up)
+        self.decoder4 = UpBlock(fs * 8, fs * 4, 2, input_sizes[1], **up)
+        self.decoder3 = UpBlock(fs * 4, fs * 2, 2, input_sizes[0], **up)
         self.decoder2 = UpBlock(fs * 2, fs, patch_size, math.prod(img_size),
                                 conv_decoder=True)
         self.out1 = UnetOutBlock(fs, out_channels)
@@ -143,16 +157,43 @@ class DLKAFormer(nn.Module):
         return logits
 
 
-def dlka_former_synapse(num_classes: int = 14, do_ds: bool = True,
-                        img_size=(64, 128, 128), *, remat: bool = False,
-                        seed: int = 0, device="cuda") -> DLKAFormer:
-    """The Synapse configuration (patch 64×128×128, stem patch (2, 4, 4)),
-    initialised from a `torch.Generator` seeded with `seed`, in eval mode,
-    on `device` (the card unless the caller asks for the CPU)."""
+def _build(model: DLKAFormer, seed: int, device) -> DLKAFormer:
+    """`model` initialised from a `torch.Generator` seeded with `seed`, in
+    eval mode, on `device` (the card unless the caller asks for the CPU)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
-    model = DLKAFormer(out_channels=num_classes, img_size=tuple(img_size),
-                       patch_size=(2, 4, 4), do_ds=do_ds, remat=remat)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.eval().to(device)
+
+
+def dlka_former_synapse(num_classes: int = 14, do_ds: bool = True,
+                        img_size=(64, 128, 128), *, remat: bool = False,
+                        trans_block: str = DEFAULT_BLOCK, seed: int = 0,
+                        device="cuda") -> DLKAFormer:
+    """The Synapse configuration (patch 64×128×128, stem patch (2, 4,
+    4)), with `trans_block` in every stage (the published block unless
+    asked)."""
+    return _build(DLKAFormer(out_channels=num_classes, img_size=tuple(img_size),
+                             patch_size=(2, 4, 4), do_ds=do_ds, remat=remat,
+                             trans_block=trans_block), seed, device)
+
+
+def dlka_former_acdc(num_classes: int = 4, do_ds: bool = True,
+                     img_size=(16, 160, 160), *, seed: int = 0,
+                     device="cuda") -> DLKAFormer:
+    """The ACDC configuration (crop 16×160×160, stem patch (1, 4, 4)).
+    The ACDC code's block of the published name has dim-dependent
+    anisotropic gate kernels: the `_acdc` variant."""
+    return _build(DLKAFormer(out_channels=num_classes, img_size=tuple(img_size),
+                             patch_size=(1, 4, 4), do_ds=do_ds,
+                             trans_block=DEFAULT_BLOCK + "_acdc"), seed, device)
+
+
+def dlka_net_pancreas(num_classes: int = 2, do_ds: bool = False,
+                      img_size=(96, 96, 96), *, seed: int = 0,
+                      device="cuda") -> DLKAFormer:
+    """The NIH Pancreas D-LKA Net (96³ inputs, stem patch (2, 2, 2):
+    stages 48³…6³)."""
+    return _build(DLKAFormer(out_channels=num_classes, img_size=tuple(img_size),
+                             patch_size=(2, 2, 2), do_ds=do_ds), seed, device)

@@ -15,8 +15,8 @@ PyTorch version instead, which autograd differentiates; on a CUDA tensor it
 launches the kernel or raises, and never falls back. On a CUDA tensor
 each forward wrapper is a `torch.autograd.Function`: `deform_conv3d`'s
 backward launches the backward kernel (`deform_conv3d_bwd`); those of
-`dw_chain3d`, `deform_dw_conv2d` and `dw_chain2d` are the VJPs of their
-plain versions, recomputed. `wrapper.launches` counts each kernel's
+`dw_chain3d`, `deform_dw_conv2d`, `dw_chain2d` and `dwconv3d` are the VJPs
+of their plain versions, recomputed. `wrapper.launches` counts each kernel's
 launches.
 """
 
@@ -35,6 +35,7 @@ import torch
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform_dw_conv2d_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_conv3d_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
+from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated as dwconv3d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain2d as dw_chain2d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as dw_chain3d_plain
 
@@ -110,6 +111,8 @@ def library() -> ctypes.CDLL:
         lib.dlka_deform_dw_conv2d.restype = i32
         lib.dlka_dw_chain2d.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.dlka_dw_chain2d.restype = i32
+        lib.dlka_dwconv3d.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        lib.dlka_dwconv3d.restype = i32
         lib.dlka_error_string.argtypes = [i32]
         lib.dlka_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -385,8 +388,54 @@ def dw_chain2d(x, w_dw, b_dw, w_dil, b_dil):
 
 dw_chain2d.launches = 0
 
+# dwconv3d keeps a block's (K³, 32 channels) weights in shared memory
+_DW_CHANNEL_TILE = 32
+
+
+def _dwconv3d_forward(x, w, bias, dil):
+    B, D, H, W, C = x.shape
+    dev = x.device
+    K = w.shape[0]
+    if tuple(w.shape[:3]) != (K, K, K) or K % 2 == 0 or dil < 1:
+        raise ValueError(f"dwconv3d kernel: a cubic odd kernel and dil >= 1 "
+                         f"only, got w {tuple(w.shape)}, dil {dil}")
+    _require(x, "x", (B, D, H, W, C), dev)
+    _require(w, "w", (K, K, K, 1, C), dev)
+    if bias is not None:
+        _require(bias, "bias", (C,), dev)
+    if B * D * H * W * C >= 2 ** 31:
+        raise ValueError("dwconv3d kernel: too many elements for int32 indices")
+    if 4 * K ** 3 * _DW_CHANNEL_TILE > _SMEM_MAX:
+        raise ValueError(f"dwconv3d kernel: K={K} weights do not fit shared memory")
+    y = torch.empty_like(x)
+    err = library().dlka_dwconv3d(
+        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        y.data_ptr(), B, D, H, W, C, K, dil, _stream())
+    _check(err, "dwconv3d")
+    dwconv3d.launches += 1
+    return y
+
+
+def dwconv3d(x, w, bias, dil: int):
+    """Depthwise K³ conv, stride 1, dilation `dil`, padding dil·(K // 2),
+    zero outside the volume, plus the bias.
+
+    x (B, D, H, W, C), w (K, K, K, 1, C), bias (C,) or None → (B, D, H, W,
+    C). Kernel: csrc/dwconv3d.cu.
+    """
+    if not x.is_cuda:
+        return dwconv3d_plain(x, w, bias, dil)
+    if bias is None:
+        return _PlainVjp.apply(lambda x, w: _dwconv3d_forward(x, w, None, dil),
+                               lambda x, w: dwconv3d_plain(x, w, None, dil), x, w)
+    return _PlainVjp.apply(lambda *t: _dwconv3d_forward(*t, dil),
+                           lambda *t: dwconv3d_plain(*t, dil), x, w, bias)
+
+
+dwconv3d.launches = 0
+
 WRAPPERS = (deform_conv3d, dw_chain3d, deform_conv3d_bwd, deform_dw_conv2d,
-            dw_chain2d)
+            dw_chain2d, dwconv3d)
 
 
 def reset_launches() -> None:

@@ -23,6 +23,8 @@ def kernel_class(name: str) -> str:
         return "deform_dw_conv2d (hand kernel)"
     if "dw_chain2d_kernel" in name:
         return "dw_chain2d (hand kernel)"
+    if "dwconv3d_kernel" in name:
+        return "dwconv3d (hand kernel)"
     low = name.lower()
     if any(s in low for s in ("conv", "cudnn", "xmma", "implicit", "gemm",
                               "sm90", "cutlass", "wgrad", "dgrad")):

@@ -28,9 +28,11 @@ def test_port_modules_are_listed():
     for name in ("ops.kernels", "training.losses", "training.train_step",
                  "train_path", "main_path", "profiling", "ops.deform2d",
                  "nn.lka2d", "models.maxvit", "models.maxvit_dlka",
-                 "evaluation.metrics", "inference.predictor2d", "main_path2d"):
+                 "evaluation.metrics", "inference.predictor2d", "main_path2d",
+                 "ops.dwconv3d", "nn.blocks3d", "nn.transformer3d",
+                 "models.dlka_former", "convert.jax_params"):
         assert f"deformablelka_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 26
+    assert len(MODULES) >= 27
 
 
 @pytest.mark.parametrize("names", [MODULES, ["chip_smoke"]],

@@ -14,16 +14,18 @@ from unittest import mock
 import pytest
 import torch
 
-from deformablelka_tpu_torch import main_path2d
+from deformablelka_tpu_torch import main_path, main_path2d
 from deformablelka_tpu_torch.models.dlka_former import dlka_former_synapse
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d, LKA3dDeform
 from deformablelka_tpu_torch.nn.layers import init_parameters
 from deformablelka_tpu_torch.nn.lka2d import deformableLKABlock, LKABlock
 from deformablelka_tpu_torch.ops import kernels
+from deformablelka_tpu_torch.nn.transformer3d import TRANSFORMER_BLOCKS
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform2d_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
 from deformablelka_tpu_torch.ops.lka import dw_chain2d as chain2d_plain
+from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated as dw_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
 
 pytestmark = pytest.mark.cuda
@@ -275,4 +277,77 @@ def test_2d_models_on_the_card_match_the_cpu_and_count_launches(cuda, config):
         ref = cpu(x)
     counts = {n: getattr(kernels, n).launches for n in ("deform_dw_conv2d", "dw_chain2d")}
     assert counts == main_path2d.LAUNCHES_PER_FORWARD[config]
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("B,S,C,K,dil", [(8, 8, 128, 5, 3), (8, 4, 256, 3, 2),
+                                         (2, (10, 14, 22), 8, 7, 3), (1, 4, 32, 5, 3),
+                                         (2, (5, 9, 6), 40, 3, 1)])
+def test_dwconv3d_kernel_matches_plain(cuda, B, S, C, K, dil):
+    D, H, W = S if isinstance(S, tuple) else (S,) * 3
+    x = torch.randn(B, D, H, W, C, device="cuda", generator=cuda)
+    w = torch.randn(K, K, K, 1, C, device="cuda", generator=cuda) / K ** 1.5
+    b = torch.randn(C, device="cuda", generator=cuda)
+    before = kernels.dwconv3d.launches
+    got = kernels.dwconv3d(x, w, b, dil)
+    assert kernels.dwconv3d.launches == before + 1
+    _close(got, dw_plain(x, w, b, dil))
+    _close(kernels.dwconv3d(x, w, None, dil), dw_plain(x, w, None, dil))
+
+
+def test_dwconv3d_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(1, 4, 4, 4, 8, device="cuda")
+    w = torch.zeros(3, 3, 3, 1, 8, device="cuda")
+    b = torch.zeros(8, device="cuda")
+    with pytest.raises(ValueError):  # even K
+        kernels.dwconv3d(x, torch.zeros(4, 4, 4, 1, 8, device="cuda"), b, 2)
+    with pytest.raises(ValueError):  # not cubic
+        kernels.dwconv3d(x, torch.zeros(3, 3, 5, 1, 8, device="cuda"), b, 2)
+    with pytest.raises(ValueError):
+        kernels.dwconv3d(x.transpose(1, 2), w, b, 2)
+    with pytest.raises(TypeError):
+        kernels.dwconv3d(x.double(), w.double(), b.double(), 2)
+    with pytest.raises(ValueError):
+        kernels.dwconv3d(x, w[..., :4], b, 2)
+    with pytest.raises(ValueError):
+        kernels.dwconv3d(x, w, b.cpu(), 2)
+
+
+def test_dwconv3d_gradient_on_the_card_matches_the_plain_path(cuda):
+    x = torch.randn(2, 8, 8, 8, 128, device="cuda", generator=cuda)
+    w = torch.randn(5, 5, 5, 1, 128, device="cuda", generator=cuda) / 5 ** 1.5
+    b = torch.randn(128, device="cuda", generator=cuda)
+    gy = torch.randn(x.shape, device="cuda", generator=cuda)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in (x, w, b)]
+        fn(*ins, 3).backward(gy)
+        return [t.grad for t in ins]
+
+    before = kernels.dwconv3d.launches
+    got = grads(kernels.dwconv3d)
+    assert kernels.dwconv3d.launches == before + 1
+    for a, r in zip(got, grads(dw_plain)):
+        _close(a, r)
+
+
+@pytest.mark.parametrize("name,S,C", [(n, 4, 32) for n in TRANSFORMER_BLOCKS]
+                         + [(n, S, C) for n in ("TransformerBlock_Deform_LKA_Spatial_sequential",
+                                                "TransformerBlock_Deform_LKA_Channel_sequential")
+                            for S, C in ((8, 128), (4, 256))])
+def test_block_on_the_card_matches_the_cpu(cuda, name, S, C):
+    cpu = TRANSFORMER_BLOCKS[name](S ** 3, C, 16).eval()
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    main_path.drive_gates(cpu, seed=1)
+    main_path2d.drive_gates_2d(cpu, seed=2)
+    gpu = TRANSFORMER_BLOCKS[name](S ** 3, C, 16).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.cuda()
+    x = torch.randn(2, S, S, S, C)
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = gpu(x.cuda()).cpu()
+        ref = cpu(x)
+    if name.endswith("_sequential"):
+        assert kernels.dwconv3d.launches == (1 if C >= 128 else 0)
     _close(got, ref)
