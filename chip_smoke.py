@@ -53,7 +53,9 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    with max|err| against the stated tolerance, the kernel's, the plain
    version's and the bound's times, and for the chain two depthwise
    `F.conv2d` as its library time (no PyTorch call computes the deform
-   conv: torchvision is absent);
+   conv: torchvision is absent): the chain and the library call both as
+   the median of 5 windows of back-to-back calls (CUDA events, the two in
+   turns) and as device time under torch.profiler;
 9. the 2D path (`main_path2d.py`): `Predictor2D.predict_volume` of a
    seeded 40×512×512 case (224² patch, one chunk of 24 and a padded one
    of 16) for the flagship and the LKA Baseline at full width from seed
@@ -69,8 +71,9 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
 12. the dilated 3D depthwise kernel against its plain version at the two
    shapes where the size-aware gates run it, 8³×128 (5³ dil 3) and 4³×256
    (3³ dil 2), batch 8, TF32 off: max|err| against the stated tolerance,
-   and the kernel's, the plain version's, one `F.conv3d(groups=C)`'s and
-   the bound's times;
+   and the kernel's (through its wrapper), the plain version's, one
+   `F.conv3d(groups=C)`'s and the bound's times, the kernel and the
+   library call timed alike (phase 8's two ways);
 13. the size-aware path: phase 4's protocol, volume and gate driving with
    `main_path.build(trans_block="TransformerBlock_Deform_LKA_Spatial_sequential")`:
    s/volume, peak device memory, launches (exactly 168 deform convs, 96
@@ -151,6 +154,25 @@ def timed_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_in_turns_ms(kernel, library, reps: int, windows: int = 5) -> tuple:
+    """Per call, the median over `windows` windows of `reps` back-to-back
+    calls, each timed with CUDA events, of `kernel` and of `library`, their
+    windows in turns (kernel, library, library, kernel, ...)."""
+    times = {kernel: [], library: []}
+    for i in range(windows):
+        for fn in ((kernel, library) if i % 2 == 0 else (library, kernel)):
+            times[fn].append(timed_ms(fn, reps, warmup=1))
+    return float(np.median(times[kernel])), float(np.median(times[library]))
+
+
+def device_ms(fn, calls: int, kernel: str | None = None) -> float:
+    """Device time per call under torch.profiler: the hand kernel's
+    (`kernel`, its class in `profiling.kernel_class`) or, with None, that of
+    every device kernel the calls ran."""
+    prof = device_profile(lambda: [fn() for _ in range(calls)])
+    return (prof["kernel_ms"] if kernel is None else prof["by_class"][kernel]) / calls
 
 
 def bound_ms(n_bytes: float, flops: float) -> dict:
@@ -572,22 +594,29 @@ def phase_2d_kernels():
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         tol = REL_TOL * max(1.0, ref.abs().max().item())
-        ms = timed_ms(lambda: kernels.dw_chain2d(x, w5, b5, w7, b7), 20)
-        pms = timed_ms(lambda: chain2d_plain(x, w5, b5, w7, b7), 10)
-        # the library call: two depthwise F.conv2d on NCHW tensors
+        # the kernel and the library call (two depthwise F.conv2d on NCHW
+        # tensors) timed alike: CUDA events, then device time
+        kernel = lambda: kernels.dw_chain2d(x, w5, b5, w7, b7)
         xn = to_nchw(x).contiguous()
         w5n, w7n = w5.permute(3, 2, 0, 1).contiguous(), w7.permute(3, 2, 0, 1).contiguous()
-        lms = timed_ms(lambda: F.conv2d(F.conv2d(xn, w5n, b5, padding=2, groups=C),
-                                        w7n, b7, padding=9, dilation=3, groups=C), 20)
+        library = lambda: F.conv2d(F.conv2d(xn, w5n, b5, padding=2, groups=C),
+                                   w7n, b7, padding=9, dilation=3, groups=C)
+        ms, lms = timed_in_turns_ms(kernel, library, 20)
+        dms = device_ms(kernel, 20, "dw_chain2d (hand kernel)")
+        ldms = device_ms(library, 20)
+        pms = timed_ms(lambda: chain2d_plain(x, w5, b5, w7, b7), 10)
         n_bytes = 4 * (2 * B * S * S * C + (25 + 49 + 2) * C)
         flops = B * S * S * C * 2 * (25 + 49)
         bnd = bound_ms(n_bytes, flops)
         bms, by = _bound(bnd)
         rows["dw_chain2d"].append(dict(S=S, C=C, sites=2, err=err, tol=tol, ms=ms,
-                                       plain_ms=pms, lib_ms=lms, **bnd))
+                                       plain_ms=pms, lib_ms=lms, device_ms=dms,
+                                       lib_device_ms=ldms, **bnd))
         print(f"phase 8 dw_chain2d B={B} {S}^2 C={C}: max|err| {err:.3e} (tol "
-              f"{tol:.3e}), kernel {ms:.4f} ms, plain {pms:.4f} ms, F.conv2d x2 "
-              f"{lms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+              f"{tol:.3e}), kernel {ms:.4f} ms ({dms:.4f} device), F.conv2d x2 "
+              f"{lms:.4f} ms ({ldms:.4f} device): kernel/library {ms / lms:.3f} "
+              f"({dms / ldms:.3f} device); plain {pms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}; bound / device time {bms / dms:.3f})", flush=True)
         if not err <= tol:
             fail(f"dw_chain2d disagrees with its plain version at {S}^2 C={C}")
         del x, xn, ref, got
@@ -711,17 +740,19 @@ def phase_dwconv3d_kernel():
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         tol = REL_TOL * max(1.0, ref.abs().max().item())
-        ms = timed_ms(lambda: kernels.dwconv3d(x, w, b, dil), 50)
-        pms = timed_ms(lambda: dw_plain(x, w, b, dil), 50)
-        # the library call: one depthwise F.conv3d on an NCDHW tensor
+        # the kernel through its wrapper and the library call (one depthwise
+        # F.conv3d on an NCDHW tensor) timed alike: CUDA events over
+        # back-to-back calls, where the host's time per call can set the
+        # pace, then the device time alone under torch.profiler
+        kernel = lambda: kernels.dwconv3d(x, w, b, dil)
         xn = to_ncdhw(x).contiguous()
         wn = w.permute(4, 3, 0, 1, 2).contiguous()
-        lms = timed_ms(lambda: F.conv3d(xn, wn, b, padding=dil * (K // 2),
-                                        dilation=dil, groups=C), 50)
-        # the kernel alone: its device time under torch.profiler (at these
-        # sizes the wrapper's host time per call exceeds it)
-        prof = device_profile(lambda: [kernels.dwconv3d(x, w, b, dil) for _ in range(50)])
-        dms = prof["by_class"]["dwconv3d (hand kernel)"] / 50
+        library = lambda: F.conv3d(xn, wn, b, padding=dil * (K // 2), dilation=dil,
+                                   groups=C)
+        ms, lms = timed_in_turns_ms(kernel, library, 50)
+        dms = device_ms(kernel, 50, "dwconv3d (hand kernel)")
+        ldms = device_ms(library, 50)
+        pms = timed_ms(lambda: dw_plain(x, w, b, dil), 50)
         # read x, w and b once, write y once; a multiply-add per channel for
         # each tap inside the volume, and the bias
         n_bytes = 4 * (2 * BATCH * V * C + K ** 3 * C + C)
@@ -729,13 +760,14 @@ def phase_dwconv3d_kernel():
         bnd = bound_ms(n_bytes, flops)
         bms, by = _bound(bnd)
         rows.append(dict(S=S, C=C, sites=sites, err=err, tol=tol, ms=ms,
-                         plain_ms=pms, lib_ms=lms, device_ms=dms, **bnd))
+                         plain_ms=pms, lib_ms=lms, device_ms=dms, lib_device_ms=ldms,
+                         **bnd))
         print(f"phase 12 dwconv3d B={BATCH} {S}^3 C={C} K={K} dil={dil}: max|err| "
               f"{err:.3e} (tol {tol:.3e}), kernel {ms:.4f} ms through the wrapper "
-              f"({dms:.4f} ms of device time), plain {pms:.4f} ms, "
-              f"F.conv3d {lms:.4f} ms, bound {bms:.4f} ms ({by}; taps inside the "
-              f"volume {in_volume_taps(S, K, dil) / (V * K ** 3):.3f} of all)",
-              flush=True)
+              f"({dms:.4f} device), F.conv3d {lms:.4f} ms ({ldms:.4f} device): "
+              f"kernel/library {ms / lms:.3f} ({dms / ldms:.3f} device); plain "
+              f"{pms:.4f} ms, bound {bms:.4f} ms ({by}; taps inside the volume "
+              f"{in_volume_taps(S, K, dil) / (V * K ** 3):.3f} of all)", flush=True)
         if not err <= tol:
             fail(f"dwconv3d disagrees with its plain version at {S}^3 C={C}")
         del x, xn, ref, got
@@ -779,8 +811,9 @@ def kernel_line(rows, launches):
             "library_ms": None if rs[0]["lib_ms"] is None else per_call("lib_ms"),
             "per": per[name],
         })
-        if "device_ms" in rs[0]:
-            out[-1]["device_ms"] = per_call("device_ms")
+        for key, row_key in (("device_ms", "device_ms"),
+                             ("library_device_ms", "lib_device_ms")):
+            out[-1][key] = per_call(row_key) if row_key in rs[0] else None
     return {"kernels": out}
 
 

@@ -12,22 +12,31 @@ and contiguity, allocates its outputs with `torch.empty` (or `torch.zeros`
 where the kernel accumulates with atomics), launches on the current stream
 and raises if the launch failed. On a CPU tensor it computes the plain
 PyTorch version instead, which autograd differentiates; on a CUDA tensor it
-launches the kernel or raises, and never falls back. On a CUDA tensor
-each forward wrapper is a `torch.autograd.Function`: `deform_conv3d`'s
-backward launches the backward kernel (`deform_conv3d_bwd`); those of
-`dw_chain3d`, `deform_dw_conv2d`, `dw_chain2d` and `dwconv3d` are the VJPs
-of their plain versions, recomputed. `wrapper.launches` counts each kernel's
-launches.
+launches the kernel or raises, and never falls back. Where autograd will
+ask for a gradient (grad mode on and an input that requires one), a
+forward wrapper on a CUDA tensor is a `torch.autograd.Function`:
+`deform_conv3d`'s backward launches the backward kernel
+(`deform_conv3d_bwd`); those of `dw_chain3d`, `deform_dw_conv2d`,
+`dw_chain2d` and `dwconv3d` are the VJPs of their plain versions,
+recomputed. Otherwise the forward launches alone: at the small shapes of
+kernels 5-6 the host's time per call sets the pace, so their launchers take
+their pointers and their launch plan (`chain2d_plan`, `dwconv3d_plan`:
+pure functions of the shape, cached) as two arrays. `wrapper.launches`
+counts each kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -109,9 +118,9 @@ def library() -> ctypes.CDLL:
         lib.dlka_dw_chain3d.restype = i32
         lib.dlka_deform_dw_conv2d.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.dlka_deform_dw_conv2d.restype = i32
-        lib.dlka_dw_chain2d.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        # (pointers, plan, vec): no argtypes, so that ctypes passes the two
+        # arrays as pointers and vec as an int without converting each
         lib.dlka_dw_chain2d.restype = i32
-        lib.dlka_dwconv3d.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         lib.dlka_dwconv3d.restype = i32
         lib.dlka_error_string.argtypes = [i32]
         lib.dlka_error_string.restype = ctypes.c_char_p
@@ -126,18 +135,57 @@ def _check(err: int, name: str) -> None:
 
 
 def _require(t: torch.Tensor, name: str, shape: tuple, device) -> None:
+    """Raise unless `t` is a contiguous float32 tensor of `shape` on
+    `device`; one test on the way that passes, the message after."""
+    if _fits(t, shape, device):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    raise ValueError(f"{name} must be contiguous")
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _fits(t: torch.Tensor, shape: tuple, device) -> bool:
+    """`_require`'s conditions as one test."""
+    return (t.dtype is torch.float32 and t.device == device and t.shape == shape
+            and t.is_contiguous())
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream's handle on `device`, read without building a
+    `torch.cuda.Stream` object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_launch_args = threading.local()
+
+
+def _pointers() -> ctypes.Array:
+    """This thread's array of the pointers a launcher of kernels 5-6 takes."""
+    buf = getattr(_launch_args, "buf", None)
+    if buf is None:
+        buf = _launch_args.buf = (ctypes.c_uint64 * 8)()
+    return buf
+
+
+def _grad_needed(*inputs) -> bool:
+    if torch.is_grad_enabled():
+        for t in inputs:
+            if t is not None and t.requires_grad:
+                return True
+    return False
+
+
+def _dispatch(kernel, plain, *inputs):
+    """`kernel(*inputs)`, through `_PlainVjp` only where autograd will ask
+    for a gradient: under `no_grad`, or when no input requires one, the
+    forward launches with no autograd Function around it."""
+    if _grad_needed(*inputs):
+        return _PlainVjp.apply(kernel, plain, *inputs)
+    return kernel(*inputs)
 
 
 def _check_deform(x, offset, w):
@@ -160,7 +208,7 @@ def _deform_forward(x, offset, w, bias):
     err = library().dlka_deform_conv3d(
         x.data_ptr(), offset.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
-        B, D, H, W, Ci, Co, _stream())
+        B, D, H, W, Ci, Co, _stream(x.device))
     _check(err, "deform_conv3d")
     deform_conv3d.launches += 1
     return y
@@ -192,6 +240,8 @@ def deform_conv3d(x, offset, w, bias=None):
     """
     if not x.is_cuda:
         return deform_conv3d_plain(x, offset, w, bias)
+    if not _grad_needed(x, offset, w, bias):
+        return _deform_forward(x, offset, w, bias)
     return _DeformConv3d.apply(x, offset, w, bias)
 
 
@@ -215,7 +265,7 @@ def deform_conv3d_bwd(x, offset, w, g):
     err = library().dlka_deform_conv3d_bwd(
         x.data_ptr(), offset.data_ptr(), w.data_ptr(), g.data_ptr(),
         dx.data_ptr(), doff.data_ptr(), dw.data_ptr(),
-        B, D, H, W, Ci, Co, _stream())
+        B, D, H, W, Ci, Co, _stream(x.device))
     _check(err, "deform_conv3d_bwd")
     deform_conv3d_bwd.launches += 1
     return dx, doff, dw
@@ -254,7 +304,7 @@ def _chain_forward(x, w_dw, b_dw, w_dil, b_dil):
     y = torch.empty_like(x)
     err = library().dlka_dw_chain3d(
         x.data_ptr(), w_dw.data_ptr(), b_dw.data_ptr(), w_dil.data_ptr(),
-        b_dil.data_ptr(), y.data_ptr(), B, D, H, W, C, ct, _stream())
+        b_dil.data_ptr(), y.data_ptr(), B, D, H, W, C, ct, _stream(x.device))
     _check(err, "dw_chain3d")
     dw_chain3d.launches += 1
     return y
@@ -296,8 +346,7 @@ def dw_chain3d(x, w_dw, b_dw, w_dil, b_dil):
     """
     if not x.is_cuda:
         return dw_chain3d_plain(x, w_dw, b_dw, w_dil, b_dil)
-    return _PlainVjp.apply(_chain_forward, dw_chain3d_plain,
-                           x, w_dw, b_dw, w_dil, b_dil)
+    return _dispatch(_chain_forward, dw_chain3d_plain, x, w_dw, b_dw, w_dil, b_dil)
 
 
 dw_chain3d.launches = 0
@@ -318,7 +367,7 @@ def _deform_dw_forward(x, offset, w, dil):
     y = torch.empty_like(x)
     err = library().dlka_deform_dw_conv2d(
         x.data_ptr(), offset.data_ptr(), w.data_ptr(), y.data_ptr(),
-        B, H, W, C, k, dil, _stream())
+        B, H, W, C, k, dil, _stream(x.device))
     _check(err, "deform_dw_conv2d")
     deform_dw_conv2d.launches += 1
     return y
@@ -334,6 +383,8 @@ def deform_dw_conv2d(x, offset, w, dil: int = 1):
     """
     if not x.is_cuda:
         return deform_dw_conv2d_plain(x, offset, w, dil)
+    if not _grad_needed(x, offset, w):
+        return _deform_dw_forward(x, offset, w, dil)
     return _PlainVjp.apply(
         lambda *t: _deform_dw_forward(*t, dil),
         lambda *t: deform_dw_conv2d_plain(*t, dil), x, offset, w)
@@ -342,34 +393,101 @@ def deform_dw_conv2d(x, offset, w, dil: int = 1):
 deform_dw_conv2d.launches = 0
 
 
-def chain2d_channel_tile(H: int, W: int, C: int) -> int:
-    """dw_chain2d keeps, per channel of its tile of CT, the haloed input
-    plane and the dw5 plane in shared memory; CT is the widest that keeps
-    that within 72 KB, else 1 channel within the 227 KB a block may hold."""
-    plane_bytes = 4 * ((H + 4) * (W + 4) + H * W)
-    for ct in (32, 16, 8, 4, 2):
-        if C % ct == 0 and plane_bytes * ct <= _CHAIN_SMEM_TARGET:
-            return ct
-    if plane_bytes <= _SMEM_MAX:
-        return 1
-    raise ValueError(f"dw_chain2d kernel: an {H}×{W} plane does not fit "
-                     "shared memory")
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How a kernel is cut into blocks: `channel_tile` channels per block,
+    the spatial `tile` of each block's outputs, `vec` floats per access
+    along C (4: 16-byte vectors, 1: scalars), the block's dynamic shared
+    memory in bytes, the grid and the threads per block. `params`: the
+    shape and the plan as the launcher reads them, one C int array (one
+    ctypes argument, not a dozen)."""
+    channel_tile: int
+    tile: tuple
+    vec: int
+    smem_bytes: int
+    grid: tuple
+    threads: int
+    params: ctypes.Array = field(compare=False, repr=False)
+
+
+_SMS = 132                   # H100 SXM streaming multiprocessors
+_SMEM_TWO_BLOCKS = 115712    # per block, for two blocks per SM (228 KB each, 1 KB reserved)
+_R5, _R7 = 8, 14             # dw_chain2d's thread strips (csrc/dw_chain2d.cu kR5, kR7)
+
+
+def _vec(ct: int, C: int) -> int:
+    return 4 if ct % 4 == 0 and C % 4 == 0 else 1
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def chain2d_smem_bytes(W: int, rows: int, ct: int) -> int:
+    """csrc/dw_chain2d.cu's shared memory for a band of `rows` output rows
+    of `ct` channels: the haloed input rows (channel pitch padded to 4 mod
+    8) and the dw5 rows ± 9 with their zero frame."""
+    mrp = -(-(rows + 18) // _R5) * _R5
+    in_chan = ((mrp + 4) * (W + 4) + 7) // 8 * 8 + 4
+    return 4 * ct * (in_chan + mrp * (W + 18))
+
+
+def _c_ints(*values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
+
+
+@functools.lru_cache(maxsize=None)
+def chain2d_plan(B: int, H: int, W: int, C: int) -> LaunchPlan:
+    """dw_chain2d's blocks: bands of `rows` output rows (a multiple of the
+    14-row strip) of `ct` channels of one image. Among the bands that keep
+    two blocks per SM: tiles of 8 or 4 channels (16-byte vectors, 8 a whole
+    32-byte sector per pixel) before narrower ones, then the tallest band
+    (the fewest dw5 halo rows recomputed), and the first of these whose
+    grid holds a wave of blocks; else one channel in the 227 KB a block
+    may hold; raises where no band fits."""
+    tall = -(-H // _R7) * _R7
+    fits = []
+    for cts in ((8, 4), (2, 1)):
+        for rows in range(tall, 0, -_R7):
+            for ct in cts:
+                smem = chain2d_smem_bytes(W, rows, ct)
+                if ct <= _pow2_at_least(C) and smem <= _SMEM_TWO_BLOCKS:
+                    fits.append((ct, rows, smem))
+    if not fits and chain2d_smem_bytes(W, _R7, 1) <= _SMEM_MAX:
+        fits.append((1, _R7, chain2d_smem_bytes(W, _R7, 1)))
+    if not fits:
+        raise ValueError(f"dw_chain2d kernel: a band of {_R7} rows of width {W} "
+                         "does not fit shared memory")
+    grid = lambda ct, rows: (-(-H // rows), -(-C // ct), B)
+    ct, rows, smem = next((f for f in fits if math.prod(grid(*f[:2])) >= _SMS), fits[0])
+    # threads per channel: about two of its dilated strips (14 rows × 1
+    # column) each, within 128 … 256 threads per block
+    per_channel = _pow2_at_least(-(-(rows // _R7) * W // 2))
+    threads = min(256, max(128, ct * per_channel))
+    return LaunchPlan(ct, (rows,), _vec(ct, C), smem, grid(ct, rows), threads,
+                      _c_ints(B, H, W, C, ct, rows, smem, threads))
 
 
 def _chain2d_forward(x, w_dw, b_dw, w_dil, b_dil):
     B, H, W, C = x.shape
     dev = x.device
-    _require(x, "x", (B, H, W, C), dev)
-    _require(w_dw, "w_dw", (5, 5, 1, C), dev)
-    _require(b_dw, "b_dw", (C,), dev)
-    _require(w_dil, "w_dil", (7, 7, 1, C), dev)
-    _require(b_dil, "b_dil", (C,), dev)
-    ct = chain2d_channel_tile(H, W, C)
+    if not (x.dtype is torch.float32 and x.is_contiguous()
+            and _fits(w_dw, (5, 5, 1, C), dev) and _fits(b_dw, (C,), dev)
+            and _fits(w_dil, (7, 7, 1, C), dev) and _fits(b_dil, (C,), dev)):
+        for t, name, shape in ((x, "x", (B, H, W, C)), (w_dw, "w_dw", (5, 5, 1, C)),
+                               (b_dw, "b_dw", (C,)), (w_dil, "w_dil", (7, 7, 1, C)),
+                               (b_dil, "b_dil", (C,))):
+            _require(t, name, shape, dev)
+    plan = chain2d_plan(B, H, W, C)
     y = torch.empty_like(x)
-    err = library().dlka_dw_chain2d(
-        x.data_ptr(), w_dw.data_ptr(), b_dw.data_ptr(), w_dil.data_ptr(),
-        b_dil.data_ptr(), y.data_ptr(), B, H, W, C, ct, _stream())
-    _check(err, "dw_chain2d")
+    a = _pointers()
+    a[0] = xp = x.data_ptr()
+    a[1], a[2], a[3], a[4] = w_dw.data_ptr(), b_dw.data_ptr(), w_dil.data_ptr(), b_dil.data_ptr()
+    a[5], a[6] = y.data_ptr(), _stream(dev)
+    err = (_lib or library()).dlka_dw_chain2d(a, plan.params,
+                                              plan.vec if xp % 16 == 0 else 1)
+    if err:
+        _check(err, "dw_chain2d")
     dw_chain2d.launches += 1
     return y
 
@@ -382,36 +500,86 @@ def dw_chain2d(x, w_dw, b_dw, w_dil, b_dil):
     """
     if not x.is_cuda:
         return dw_chain2d_plain(x, w_dw, b_dw, w_dil, b_dil)
-    return _PlainVjp.apply(_chain2d_forward, dw_chain2d_plain,
-                           x, w_dw, b_dw, w_dil, b_dil)
+    return _dispatch(_chain2d_forward, dw_chain2d_plain, x, w_dw, b_dw, w_dil, b_dil)
 
 
 dw_chain2d.launches = 0
 
-# dwconv3d keeps a block's (K³, 32 channels) weights in shared memory
-_DW_CHANNEL_TILE = 32
+def dwconv3d_smem_bytes(D: int, H: int, W: int, K: int, dil: int, ct: int,
+                        tile: tuple) -> int:
+    """csrc/dwconv3d.cu's shared memory: the (K³, ct) weights and the
+    tile's input with its halo h = dil·(K // 2), clipped to the volume
+    along z and y, along x the tile rounded up to 4 plus 2h, made odd."""
+    h = dil * (K // 2)
+    TZ, TY, TX = tile
+    sx = (-(-TX // 4) * 4 + 2 * h) | 1
+    return 4 * ct * (K ** 3 + min(D, TZ + 2 * h) * min(H, TY + 2 * h) * sx)
+
+
+@functools.lru_cache(maxsize=None)
+def dwconv3d_plan(B: int, D: int, H: int, W: int, C: int, K: int,
+                  dil: int) -> LaunchPlan:
+    """dwconv3d's blocks: output tiles (TZ, TY, TX) of `ct` channels (up to
+    8: a 32-byte sector per voxel) of one volume. From the whole volume, a
+    tile side is halved (the one whose halving saves the most shared
+    memory) until two blocks fit an SM, else fewer channels; then on while
+    the grid holds less than a wave of blocks and the staged input stays
+    under 8× the tile's; raises where one voxel of one channel does not
+    fit the 227 KB a block may hold."""
+    h = dil * (K // 2)
+
+    def halved(tile, ct):
+        cands = [tile[:i] + (-(-tile[i] // 2),) + tile[i + 1:]
+                 for i in range(3) if tile[i] > 1]
+        return min(cands, key=lambda t: dwconv3d_smem_bytes(D, H, W, K, dil, ct, t))
+
+    def grid(tile, ct):
+        return (-(-D // tile[0]) * -(-H // tile[1]) * -(-W // tile[2]), -(-C // ct), B)
+
+    smem = lambda tile, ct: dwconv3d_smem_bytes(D, H, W, K, dil, ct, tile)
+    for ct in (c for c in (8, 4, 2, 1) if c <= _pow2_at_least(C)):
+        tile = (D, H, W)
+        while smem(tile, ct) > _SMEM_TWO_BLOCKS and tile != (1, 1, 1):
+            tile = halved(tile, ct)
+        if smem(tile, ct) <= _SMEM_TWO_BLOCKS or (ct == 1 and smem(tile, ct) <= _SMEM_MAX):
+            break
+    else:
+        raise ValueError(f"dwconv3d kernel: K={K} dil={dil} does not fit shared memory")
+    while math.prod(grid(tile, ct)) < _SMS and tile != (1, 1, 1):
+        half = halved(tile, ct)
+        staged = (smem(half, ct) - 4 * ct * K ** 3) // (4 * ct)
+        if staged > 8 * math.prod(half):
+            break
+        tile = half
+    return LaunchPlan(ct, tile, _vec(ct, C), smem(tile, ct), grid(tile, ct), 256,
+                      _c_ints(B, D, H, W, C, K, dil, ct, *tile, smem(tile, ct)))
 
 
 def _dwconv3d_forward(x, w, bias, dil):
     B, D, H, W, C = x.shape
     dev = x.device
     K = w.shape[0]
-    if tuple(w.shape[:3]) != (K, K, K) or K % 2 == 0 or dil < 1:
-        raise ValueError(f"dwconv3d kernel: a cubic odd kernel and dil >= 1 "
-                         f"only, got w {tuple(w.shape)}, dil {dil}")
-    _require(x, "x", (B, D, H, W, C), dev)
-    _require(w, "w", (K, K, K, 1, C), dev)
-    if bias is not None:
-        _require(bias, "bias", (C,), dev)
-    if B * D * H * W * C >= 2 ** 31:
+    if not (K % 2 and dil >= 1 and x.dtype is torch.float32 and x.is_contiguous()
+            and _fits(w, (K, K, K, 1, C), dev)  # cubic
+            and (bias is None or _fits(bias, (C,), dev)) and B * D * H * W * C < 2 ** 31):
+        if K % 2 == 0 or dil < 1:
+            raise ValueError(f"dwconv3d kernel: a cubic odd kernel and dil >= 1 "
+                             f"only, got w {tuple(w.shape)}, dil {dil}")
+        _require(x, "x", (B, D, H, W, C), dev)
+        _require(w, "w", (K, K, K, 1, C), dev)
+        if bias is not None:
+            _require(bias, "bias", (C,), dev)
         raise ValueError("dwconv3d kernel: too many elements for int32 indices")
-    if 4 * K ** 3 * _DW_CHANNEL_TILE > _SMEM_MAX:
-        raise ValueError(f"dwconv3d kernel: K={K} weights do not fit shared memory")
+    plan = dwconv3d_plan(B, D, H, W, C, K, dil)
     y = torch.empty_like(x)
-    err = library().dlka_dwconv3d(
-        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-        y.data_ptr(), B, D, H, W, C, K, dil, _stream())
-    _check(err, "dwconv3d")
+    a = _pointers()
+    a[0] = xp = x.data_ptr()
+    a[1], a[2] = w.data_ptr(), 0 if bias is None else bias.data_ptr()
+    a[3], a[4] = y.data_ptr(), _stream(dev)
+    err = (_lib or library()).dlka_dwconv3d(a, plan.params,
+                                            plan.vec if xp % 16 == 0 else 1)
+    if err:
+        _check(err, "dwconv3d")
     dwconv3d.launches += 1
     return y
 
@@ -425,6 +593,9 @@ def dwconv3d(x, w, bias, dil: int):
     """
     if not x.is_cuda:
         return dwconv3d_plain(x, w, bias, dil)
+    if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or (
+            bias is not None and bias.requires_grad))):  # `_grad_needed`, inlined
+        return _dwconv3d_forward(x, w, bias, dil)
     if bias is None:
         return _PlainVjp.apply(lambda x, w: _dwconv3d_forward(x, w, None, dil),
                                lambda x, w: dwconv3d_plain(x, w, None, dil), x, w)

@@ -197,8 +197,13 @@ def test_deform_dw_kernel_matches_plain(cuda, B, H, W, C, k, dil):
 
 @pytest.mark.parametrize("B,H,W,C", [(24, 14, 14, 384), (24, 28, 28, 192),
                                      (4, 56, 56, 96), (1, 5, 7, 3),
-                                     (2, 20, 31, 6), (1, 100, 90, 2)])
+                                     (2, 20, 31, 6), (1, 100, 90, 2),
+                                     (1, 200, 200, 1), (2, 64, 64, 96),
+                                     (2, 33, 10, 12)])
 def test_chain2d_kernel_matches_plain(cuda, B, H, W, C):
+    """The three decoder shapes; C % 4 ≠ 0 (scalar accesses); H ≠ W; planes
+    cut into several row bands (200², 64²); channel counts that the tile
+    does not divide (3, 6, 12)."""
     x = torch.randn(B, H, W, C, device="cuda", generator=cuda)
     w5 = torch.randn(5, 5, 1, C, device="cuda", generator=cuda) / 5
     w7 = torch.randn(7, 7, 1, C, device="cuda", generator=cuda) / 7
@@ -230,8 +235,8 @@ def test_2d_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.dw_chain2d(x, w5, b, w5, b)
     with pytest.raises(ValueError):
         kernels.dw_chain2d(x, w5, b.cpu(), w7, b)
-    with pytest.raises(ValueError):  # one channel's planes exceed shared memory
-        kernels.dw_chain2d(torch.zeros(1, 200, 200, 1, device="cuda"),
+    with pytest.raises(ValueError):  # a band of one channel exceeds shared memory
+        kernels.dw_chain2d(torch.zeros(1, 14, 2000, 1, device="cuda"),
                            w5[..., :1], b[:1], w7[..., :1], b[:1])
 
 
@@ -282,8 +287,11 @@ def test_2d_models_on_the_card_match_the_cpu_and_count_launches(cuda, config):
 
 @pytest.mark.parametrize("B,S,C,K,dil", [(8, 8, 128, 5, 3), (8, 4, 256, 3, 2),
                                          (2, (10, 14, 22), 8, 7, 3), (1, 4, 32, 5, 3),
-                                         (2, (5, 9, 6), 40, 3, 1)])
+                                         (2, (5, 9, 6), 40, 3, 1), (1, (9, 10, 11), 3, 5, 2),
+                                         (2, (6, 7, 13), 12, 3, 1), (1, (20, 24, 28), 16, 5, 3)])
 def test_dwconv3d_kernel_matches_plain(cuda, B, S, C, K, dil):
+    """The two site shapes; volumes cut into several tiles; C % 4 ≠ 0
+    (scalar copies); channel counts that the tile does not divide (3, 12)."""
     D, H, W = S if isinstance(S, tuple) else (S,) * 3
     x = torch.randn(B, D, H, W, C, device="cuda", generator=cuda)
     w = torch.randn(K, K, K, 1, C, device="cuda", generator=cuda) / K ** 1.5
@@ -293,6 +301,43 @@ def test_dwconv3d_kernel_matches_plain(cuda, B, S, C, K, dil):
     assert kernels.dwconv3d.launches == before + 1
     _close(got, dw_plain(x, w, b, dil))
     _close(kernels.dwconv3d(x, w, None, dil), dw_plain(x, w, None, dil))
+
+
+def test_kernels_5_6_on_an_unaligned_input_take_scalar_accesses(cuda):
+    """An input whose data does not start on 16 bytes (a view at an offset)
+    goes through the kernels' scalar path, with the same result."""
+    C = 8
+    buf = torch.randn(2 * 9 * 11 * C + 1, device="cuda", generator=cuda)
+    x = buf[1:].view(2, 9, 11, C)
+    assert x.data_ptr() % 16 != 0
+    w5 = torch.randn(5, 5, 1, C, device="cuda", generator=cuda) / 5
+    w7 = torch.randn(7, 7, 1, C, device="cuda", generator=cuda) / 7
+    b = torch.randn(C, device="cuda", generator=cuda)
+    _close(kernels.dw_chain2d(x, w5, b, w7, b), chain2d_plain(x, w5, b, w7, b))
+    buf = torch.randn(2 * 6 * 5 * 7 * C + 1, device="cuda", generator=cuda)
+    x = buf[1:].view(2, 6, 5, 7, C)
+    w = torch.randn(3, 3, 3, 1, C, device="cuda", generator=cuda) / 5
+    _close(kernels.dwconv3d(x, w, b, 2), dw_plain(x, w, b, 2))
+
+
+def test_kernels_5_6_dispatch_lean_without_grad(cuda):
+    """Under no_grad, or with no input requiring a gradient, the kernels
+    launch with no autograd Function around them; with one, the output
+    carries a grad_fn. Each call counts one launch."""
+    x = torch.randn(2, 9, 11, 8, device="cuda", generator=cuda)
+    w5, w7, b = (torch.randn(5, 5, 1, 8, device="cuda"), torch.randn(7, 7, 1, 8, device="cuda"),
+                 torch.zeros(8, device="cuda"))
+    x3 = torch.randn(2, 4, 4, 4, 8, device="cuda", generator=cuda)
+    w3 = torch.randn(3, 3, 3, 1, 8, device="cuda")
+    before = (kernels.dw_chain2d.launches, kernels.dwconv3d.launches)
+    with torch.no_grad():
+        assert kernels.dw_chain2d(x.requires_grad_(), w5, b, w7, b).grad_fn is None
+        assert kernels.dwconv3d(x3.requires_grad_(), w3, b, 2).grad_fn is None
+    assert kernels.dw_chain2d(x.detach(), w5, b, w7, b).grad_fn is None
+    assert kernels.dw_chain2d(x, w5, b, w7, b).grad_fn is not None
+    assert kernels.dwconv3d(x3, w3, None, 2).grad_fn is not None
+    assert (kernels.dw_chain2d.launches, kernels.dwconv3d.launches) == (
+        before[0] + 3, before[1] + 2)
 
 
 def test_dwconv3d_wrapper_rejects_what_the_kernel_does_not_take(cuda):
