@@ -8,11 +8,17 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
 1. device and build: the card's name and power limit (nvidia-smi), then
    the build of csrc/*.cu and its time;
 2. each 3D forward kernel against its plain PyTorch version, at the four stage
-   shapes of the main path with batch 8 (deform offsets uniform in
-   ±2.5, so some corners fall outside the volume), TF32 off: max|err|
-   against the stated tolerance, and the times of the kernel, the plain
-   version and one PyTorch library call for the same function, from CUDA
-   events, beside the card's bound for the work;
+   shapes of the main path with batch 8, TF32 off: max|err| against the
+   stated tolerance, and the times of the kernel (CUDA events, and device
+   time under torch.profiler), the plain version and, for the chain, two
+   depthwise `F.conv3d` (timed in turns with the kernel), beside the
+   card's bound for the work. The deform conv is checked and timed at
+   offsets uniform in ±2.5 (some corners outside the volume) and in ±0.05
+   (a trained checkpoint's size); beside it, cuDNN's dense 3³ `F.conv3d`
+   at the same shape (the Δ = 0 channel mix alone, a yardstick: no
+   PyTorch call computes the deform conv) and a tensor-core bound (three
+   TF32 products per multiply at 495 TFLOP/s, the blend at 67 TFLOP/s
+   f32, and the bytes) beside the f32 one;
 3. the whole model, small input: the CUDA model against the same model
    on the CPU (the path the CPU tests hold against the JAX package);
 4. the main path: `dlka_former_synapse(num_classes=14, do_ds=False)` at
@@ -134,6 +140,7 @@ BATCH = 8
 TRAIN_BATCH = train_path.BATCH
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12    # H100 SXM TF32 on the tensor cores, dense
 REL_TOL = 1e-4              # max|kernel - plain| ≤ REL_TOL · max(1, max|plain|)
 MIN_AGREEMENT = 0.999       # argmax share, kernels vs plain versions
 
@@ -202,6 +209,19 @@ def phase_device():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
+def _deform_check(x, off, w, b, label):
+    """max|kernel - plain| at one set of offsets, against the tolerance."""
+    ref = deform_plain(x, off, w, b)
+    got = kernels.deform_conv3d(x, off, w, b)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    tol = REL_TOL * max(1.0, ref.abs().max().item())
+    if not err <= tol:
+        fail(f"deform_conv3d disagrees with its plain version at {label}: "
+             f"max|err| {err:.3e} > {tol:.3e}")
+    return err, tol
+
+
 def phase_kernels():
     """Each kernel against its plain version at the four stage shapes."""
     dev = torch.device("cuda")
@@ -210,30 +230,43 @@ def phase_kernels():
     for S, C, sites in STAGES:
         V = S ** 3
         x = torch.randn(BATCH, S, S, S, C, device=dev, generator=g)
-        # deform conv
+        xn = to_ncdhw(x).contiguous()
+        # deform conv, at offsets uniform in ±2.5 and in ±0.05 (a trained
+        # checkpoint reads |Δ| ≤ 0.034)
         off = (torch.rand(BATCH, S, S, S, 81, device=dev, generator=g) * 2 - 1) * 2.5
+        small = (torch.rand(BATCH, S, S, S, 81, device=dev, generator=g) * 2 - 1) * 0.05
         w = torch.randn(3, 3, 3, C, C, device=dev, generator=g) / (27 * C) ** 0.5
         b = torch.randn(C, device=dev, generator=g) * 0.1
-        ref = deform_plain(x, off, w, b)
-        got = kernels.deform_conv3d(x, off, w, b)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        tol = REL_TOL * max(1.0, ref.abs().max().item())
+        err, tol = _deform_check(x, off, w, b, f"{S}^3 C={C}, offsets in ±2.5")
+        err_small, _ = _deform_check(x, small, w, b, f"{S}^3 C={C}, offsets in ±0.05")
         outside = (off.abs() > 1).float().mean().item()
-        ms = timed_ms(lambda: kernels.deform_conv3d(x, off, w, b), 20)
+        kernel = lambda: kernels.deform_conv3d(x, off, w, b)
+        ms = timed_ms(kernel, 20)
+        dms = device_ms(kernel, 20, "deform_conv3d (hand kernel)")
+        sms = timed_ms(lambda: kernels.deform_conv3d(x, small, w, b), 20)
         pms = timed_ms(lambda: deform_plain(x, off, w, b), 3, warmup=1)
+        # cuDNN's dense 3³ conv at the same shape: the Δ = 0 channel mix alone,
+        # a yardstick and not the same function
+        wn = w.permute(4, 3, 0, 1, 2).contiguous()
+        cms = timed_ms(lambda: F.conv3d(xn, wn, b, padding=1), 20)
         n_bytes = 4 * (BATCH * V * (C + 81 + C) + 27 * C * C + C)
-        flops = BATCH * V * 27 * (2 * C * C + 16 * C)
-        bnd = bound_ms(n_bytes, flops)
+        mix, blend = BATCH * V * 27 * 2 * C * C, BATCH * V * 27 * 16 * C
+        bnd = bound_ms(n_bytes, mix + blend)
         bms, by = _bound(bnd)
-        rows["deform_conv3d"].append(dict(S=S, C=C, sites=sites, err=err, tol=tol,
-                                          ms=ms, plain_ms=pms, lib_ms=None, **bnd))
-        print(f"phase 2 deform_conv3d B={BATCH} {S}^3 C={C}: max|err| {err:.3e} "
-              f"(tol {tol:.3e}), |Δ|>1 share {outside:.3f}, kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
-        if not err <= tol:
-            fail(f"deform_conv3d disagrees with its plain version at {S}^3 C={C}")
-        del off, ref, got
+        # on the tensor cores: three TF32 products per multiply of the mix,
+        # the blend on the CUDA cores, the two pipes in parallel
+        tc = max(bnd["bytes_ms"], 3 * mix / TF32_FLOP_PER_S * 1e3,
+                 blend / F32_FLOP_PER_S * 1e3)
+        rows["deform_conv3d"].append(dict(S=S, C=C, sites=sites, err=max(err, err_small),
+                                          tol=tol, ms=ms, plain_ms=pms, lib_ms=None,
+                                          device_ms=dms, small_offset_ms=sms,
+                                          dense_conv_ms=cms, tc_bound_ms=tc, **bnd))
+        print(f"phase 2 deform_conv3d B={BATCH} {S}^3 C={C}: max|err| {err:.3e} at ±2.5, "
+              f"{err_small:.3e} at ±0.05 (tol {tol:.3e}), |Δ|>1 share {outside:.3f}, "
+              f"kernel {ms:.4f} ms (device {dms:.4f}) at ±2.5, {sms:.4f} ms at ±0.05, "
+              f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}; f32), tensor-core bound "
+              f"{tc:.4f} ms, cuDNN dense 3^3 conv {cms:.4f} ms", flush=True)
+        del off, small
         # dw chain
         w5 = torch.randn(5, 5, 5, 1, C, device=dev, generator=g) / 125 ** 0.5
         b5 = torch.randn(C, device=dev, generator=g) * 0.1
@@ -244,24 +277,29 @@ def phase_kernels():
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         tol = REL_TOL * max(1.0, ref.abs().max().item())
-        ms = timed_ms(lambda: kernels.dw_chain3d(x, w5, b5, w7, b7), 20)
+        if not err <= tol:
+            fail(f"dw_chain3d disagrees with its plain version at {S}^3 C={C}")
         pms = timed_ms(lambda: chain_plain(x, w5, b5, w7, b7), 10)
-        # the library call: two depthwise F.conv3d on NCDHW tensors
-        xn = to_ncdhw(x).contiguous()
+        # the library call: two depthwise F.conv3d on NCDHW tensors, timed in
+        # turns with the kernel
         w5n, w7n = w5.permute(4, 3, 0, 1, 2).contiguous(), w7.permute(4, 3, 0, 1, 2).contiguous()
-        lms = timed_ms(lambda: F.conv3d(F.conv3d(xn, w5n, b5, padding=2, groups=C),
-                                        w7n, b7, padding=9, dilation=3, groups=C), 10)
+        kernel = lambda: kernels.dw_chain3d(x, w5, b5, w7, b7)
+        library = lambda: F.conv3d(F.conv3d(xn, w5n, b5, padding=2, groups=C),
+                                   w7n, b7, padding=9, dilation=3, groups=C)
+        ms, lms = timed_in_turns_ms(kernel, library, 10)
+        dms = device_ms(kernel, 10, "dw_chain3d (hand kernel)")
+        ldms = device_ms(library, 10)
         n_bytes = 4 * (2 * BATCH * V * C + (125 + 343 + 2) * C)
         flops = BATCH * V * C * 2 * (125 + 343)
         bnd = bound_ms(n_bytes, flops)
         bms, by = _bound(bnd)
         rows["dw_chain3d"].append(dict(S=S, C=C, sites=sites, err=err, tol=tol,
-                                       ms=ms, plain_ms=pms, lib_ms=lms, **bnd))
+                                       ms=ms, plain_ms=pms, lib_ms=lms, device_ms=dms,
+                                       lib_device_ms=ldms, **bnd))
         print(f"phase 2 dw_chain3d B={BATCH} {S}^3 C={C}: max|err| {err:.3e} "
-              f"(tol {tol:.3e}), kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-              f"F.conv3d x2 {lms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
-        if not err <= tol:
-            fail(f"dw_chain3d disagrees with its plain version at {S}^3 C={C}")
+              f"(tol {tol:.3e}), kernel {ms:.4f} ms (device {dms:.4f}), plain "
+              f"{pms:.4f} ms, F.conv3d x2 {lms:.4f} ms (device {ldms:.4f}), bound "
+              f"{bms:.4f} ms ({by})", flush=True)
         del x, xn, ref, got
         torch.cuda.empty_cache()
     return rows
@@ -814,6 +852,9 @@ def kernel_line(rows, launches):
         for key, row_key in (("device_ms", "device_ms"),
                              ("library_device_ms", "lib_device_ms")):
             out[-1][key] = per_call(row_key) if row_key in rs[0] else None
+        for key in ("small_offset_ms", "dense_conv_ms", "tc_bound_ms"):
+            if key in rs[0]:
+                out[-1][key] = per_call(key)
     return {"kernels": out}
 
 

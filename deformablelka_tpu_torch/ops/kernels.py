@@ -9,8 +9,9 @@ else from `$CUDA_HOME/bin`.
 
 Each wrapper takes the JAX package's layouts, checks device, dtype, shape
 and contiguity, allocates its outputs with `torch.empty` (or `torch.zeros`
-where the kernel accumulates with atomics), launches on the current stream
-and raises if the launch failed. On a CPU tensor it computes the plain
+where the kernel accumulates with atomics; a scratch buffer where the
+deform conv splits K over taps), launches on the current stream and raises
+if the launch failed. On a CPU tensor it computes the plain
 PyTorch version instead, which autograd differentiates; on a CUDA tensor it
 launches the kernel or raises, and never falls back. Where autograd will
 ask for a gradient (grad mode on and an input that requires one), a
@@ -18,11 +19,13 @@ forward wrapper on a CUDA tensor is a `torch.autograd.Function`:
 `deform_conv3d`'s backward launches the backward kernel
 (`deform_conv3d_bwd`); those of `dw_chain3d`, `deform_dw_conv2d`,
 `dw_chain2d` and `dwconv3d` are the VJPs of their plain versions,
-recomputed. Otherwise the forward launches alone: at the small shapes of
-kernels 5-6 the host's time per call sets the pace, so their launchers take
-their pointers and their launch plan (`chain2d_plan`, `dwconv3d_plan`:
-pure functions of the shape, cached) as two arrays. `wrapper.launches`
-counts each kernel's launches.
+recomputed. Otherwise the forward launches alone. The launchers of the
+forward kernels take their pointers and their launch plan
+(`deform3d_plan`, `chain3d_plan`, `chain2d_plan`, `dwconv3d_plan`: pure
+functions of the shape, cached) as two arrays: at the small shapes the
+host's time per call sets the pace. `wrapper.launches` counts each
+kernel's launches (the deform conv's second pass, which adds the parts of
+a split K, is part of its one call).
 """
 
 from __future__ import annotations
@@ -110,16 +113,14 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(_build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.dlka_deform_conv3d.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
-        lib.dlka_deform_conv3d.restype = i32
         lib.dlka_deform_conv3d_bwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
         lib.dlka_deform_conv3d_bwd.restype = i32
-        lib.dlka_dw_chain3d.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-        lib.dlka_dw_chain3d.restype = i32
         lib.dlka_deform_dw_conv2d.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.dlka_deform_dw_conv2d.restype = i32
         # (pointers, plan, vec): no argtypes, so that ctypes passes the two
         # arrays as pointers and vec as an int without converting each
+        lib.dlka_deform_conv3d.restype = i32
+        lib.dlka_dw_chain3d.restype = i32
         lib.dlka_dw_chain2d.restype = i32
         lib.dlka_dwconv3d.restype = i32
         lib.dlka_error_string.argtypes = [i32]
@@ -204,12 +205,21 @@ def _deform_forward(x, offset, w, bias):
     Co = w.shape[-1]
     if bias is not None:
         _require(bias, "bias", (Co,), x.device)
+    plan = deform3d_plan(B, D, H, W, Ci, Co)
     y = torch.empty(B, D, H, W, Co, device=x.device, dtype=torch.float32)
-    err = library().dlka_deform_conv3d(
-        x.data_ptr(), offset.data_ptr(), w.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(),
-        B, D, H, W, Ci, Co, _stream(x.device))
-    _check(err, "deform_conv3d")
+    scratch = (torch.empty(plan.parts * B * D * H * W * Co, device=x.device,
+                           dtype=torch.float32) if plan.parts > 1 else None)
+    a = _pointers()
+    a[0] = xp = x.data_ptr()
+    a[1] = offset.data_ptr()
+    a[2] = wp = w.data_ptr()
+    a[3] = 0 if bias is None else bias.data_ptr()
+    a[4], a[5] = y.data_ptr(), 0 if scratch is None else scratch.data_ptr()
+    a[6] = _stream(x.device)
+    vec = plan.vec if xp % 16 == 0 and wp % 16 == 0 else 1
+    err = (_lib or library()).dlka_deform_conv3d(a, plan.params, vec)
+    if err:
+        _check(err, "deform_conv3d")
     deform_conv3d.launches += 1
     return y
 
@@ -273,39 +283,28 @@ def deform_conv3d_bwd(x, offset, w, g):
 
 deform_conv3d_bwd.launches = 0
 
-# dw_chain3d keeps, per channel of its tile of CT, 7 whole H×W planes and
-# 5 haloed input planes in shared memory; CT is the widest that keeps that
-# within 72 KB (three blocks per SM), else 1 channel within the 227 KB a
-# block may hold.
-_CHAIN_SMEM_TARGET = 72 * 1024
-_SMEM_MAX = 232448
-
-
-def chain_channel_tile(H: int, W: int, C: int) -> int:
-    plane_bytes = 4 * (7 * H * W + 5 * (H + 4) * (W + 4))
-    for ct in (32, 16, 8, 4, 2):
-        if C % ct == 0 and plane_bytes * ct <= _CHAIN_SMEM_TARGET:
-            return ct
-    if plane_bytes <= _SMEM_MAX:
-        return 1
-    raise ValueError(f"dw_chain3d kernel: an {H}×{W} plane does not fit "
-                     "shared memory")
-
-
 def _chain_forward(x, w_dw, b_dw, w_dil, b_dil):
     B, D, H, W, C = x.shape
     dev = x.device
-    _require(x, "x", (B, D, H, W, C), dev)
-    _require(w_dw, "w_dw", (5, 5, 5, 1, C), dev)
-    _require(b_dw, "b_dw", (C,), dev)
-    _require(w_dil, "w_dil", (7, 7, 7, 1, C), dev)
-    _require(b_dil, "b_dil", (C,), dev)
-    ct = chain_channel_tile(H, W, C)
+    if not (x.dtype is torch.float32 and x.is_contiguous()
+            and _fits(w_dw, (5, 5, 5, 1, C), dev) and _fits(b_dw, (C,), dev)
+            and _fits(w_dil, (7, 7, 7, 1, C), dev) and _fits(b_dil, (C,), dev)
+            and B * D * H * W * C < 2 ** 31):
+        for t, name, shape in ((x, "x", (B, D, H, W, C)), (w_dw, "w_dw", (5, 5, 5, 1, C)),
+                               (b_dw, "b_dw", (C,)), (w_dil, "w_dil", (7, 7, 7, 1, C)),
+                               (b_dil, "b_dil", (C,))):
+            _require(t, name, shape, dev)
+        raise ValueError("dw_chain3d kernel: too many elements for int32 indices")
+    plan = chain3d_plan(B, D, H, W, C)
     y = torch.empty_like(x)
-    err = library().dlka_dw_chain3d(
-        x.data_ptr(), w_dw.data_ptr(), b_dw.data_ptr(), w_dil.data_ptr(),
-        b_dil.data_ptr(), y.data_ptr(), B, D, H, W, C, ct, _stream(x.device))
-    _check(err, "dw_chain3d")
+    a = _pointers()
+    a[0] = xp = x.data_ptr()
+    a[1], a[2], a[3], a[4] = w_dw.data_ptr(), b_dw.data_ptr(), w_dil.data_ptr(), b_dil.data_ptr()
+    a[5], a[6] = y.data_ptr(), _stream(dev)
+    err = (_lib or library()).dlka_dw_chain3d(a, plan.params,
+                                              plan.vec if xp % 16 == 0 else 1)
+    if err:
+        _check(err, "dw_chain3d")
     dw_chain3d.launches += 1
     return y
 
@@ -408,11 +407,66 @@ class LaunchPlan:
     grid: tuple
     threads: int
     params: ctypes.Array = field(compare=False, repr=False)
+    parts: int = 1   # deform3d: the K split over taps; chain3d: the runs of a z phase
 
 
 _SMS = 132                   # H100 SXM streaming multiprocessors
+_SMEM_MAX = 232448           # shared memory one block may hold
 _SMEM_TWO_BLOCKS = 115712    # per block, for two blocks per SM (228 KB each, 1 KB reserved)
 _R5, _R7 = 8, 14             # dw_chain2d's thread strips (csrc/dw_chain2d.cu kR5, kR7)
+
+
+# csrc/deform3d.cu's BK (channels per K step), kRows and kThreads; the taps
+_DEFORM_BK, _DEFORM_ROWS, _DEFORM_THREADS, _TAPS = 32, 64, 128, 27
+
+
+def deform3d_smem_bytes(rows: int, bn: int, taps: int) -> int:
+    """csrc/deform3d.cu's shared memory: two buffers each of the A tile
+    (rows × 36 floats), of the B tile (32 × (bn + 8)) and of the corner
+    table (rows × 8 weights and 8 indices); the rows' voxel indices; their
+    offsets at the `taps` taps of a part (3 a tap, the pitch odd)."""
+    return 4 * (2 * rows * (_DEFORM_BK + 4) + 2 * _DEFORM_BK * (bn + 8)
+                + 2 * 2 * rows * 8 + rows + rows * (3 * taps | 1))
+
+
+def _brick(rows: int, D: int, H: int, W: int) -> tuple:
+    """log2 of the (z, y, x) sides of a brick of at most `rows` voxels: one
+    doubling at a time to x, y, z in turn, none past the volume's side
+    rounded up to a power of two."""
+    caps = [max(0, n - 1).bit_length() for n in (D, H, W)]
+    sides = [0, 0, 0]
+    bits = rows.bit_length() - 1
+    while bits:
+        grown = False
+        for axis in (2, 1, 0):
+            if bits and sides[axis] < caps[axis]:
+                sides[axis] += 1
+                bits -= 1
+                grown = True
+        if not grown:
+            break
+    return tuple(sides)
+
+
+@functools.lru_cache(maxsize=None)
+def deform3d_plan(B: int, D: int, H: int, W: int, Ci: int, Co: int) -> LaunchPlan:
+    """deform_conv3d's blocks: 64 output voxels (a brick, `tile`, of one
+    volume) × `channel_tile` output channels (32 where Co ≤ 32, else 64),
+    K over taps in `parts`: the fewest of 1, 3, 9, 27 parts that give three
+    blocks per SM (27: one tap a block). 16-byte accesses where Ci % 4 = 0
+    and Co % 4 = 0."""
+    rows = _DEFORM_ROWS
+    bn = 32 if Co <= 32 else 64
+    lz, ly, lx = _brick(rows, D, H, W)
+    blocks = B * -(-D >> lz) * -(-H >> ly) * -(-W >> lx) * -(-Co // bn)
+    parts = next((p for p in (1, 3, 9) if blocks * p >= 3 * _SMS), _TAPS)
+    smem = deform3d_smem_bytes(rows, bn, _TAPS // parts)
+    vec = 4 if Ci % 4 == 0 and Co % 4 == 0 else 1
+    return LaunchPlan(bn, (1 << lz, 1 << ly, 1 << lx), vec, smem,
+                      (blocks // -(-Co // bn), -(-Co // bn), parts), _DEFORM_THREADS,
+                      _c_ints(B, D, H, W, Ci, Co, bn, lz, ly, lx, parts, _TAPS // parts,
+                              smem),
+                      parts=parts)
 
 
 def _vec(ct: int, C: int) -> int:
@@ -421,6 +475,83 @@ def _vec(ct: int, C: int) -> int:
 
 def _pow2_at_least(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
+
+
+_R5_3D, _R7_3D = 8, 8   # csrc/dw_chain3d.cu kR5, R7
+
+
+def _bank_pitch(n: int, W: int) -> int:
+    """The smallest channel pitch ≥ n that puts a warp's lanes (along x,
+    then across channels where W < 32) on distinct banks: ≡ W (mod 32)
+    where W < 32, else ≡ 4 (mod 8) against conflicts in 16-byte staging."""
+    if W < 32:
+        return n + (W - n) % 32
+    return n + (4 - n) % 8
+
+
+def chain3d_ring_rows(H: int, rows: int) -> int:
+    """The intermediate rows a band of `rows` output rows keeps in the ring:
+    the most, over the bands, of its rows ± 9 inside [0, H), and at least
+    one dw5 strip."""
+    need = max(min(H, r0 + rows + 9) - max(0, r0 - 9) for r0 in range(0, H, rows))
+    return max(_R5_3D, need)
+
+
+def chain3d_layout(H: int, W: int, ct: int, rows: int) -> tuple:
+    """csrc/dw_chain3d.cu's shared memory for bands of `rows` output rows of
+    `ct` channels: (ring rows, ring channel pitch, staged-plane channel
+    pitch, bytes). The ring holds 7 intermediate planes of the band's rows
+    ± 9, each with a zero row and a zero column (row pitch W + 1); the
+    staged plane one input plane of those rows ± 2 with a zero frame of 2,
+    and later the band's output rows."""
+    rhp = chain3d_ring_rows(H, rows)
+    ring_chan = _bank_pitch((rhp + 1) * (W + 1), W)
+    in_chan = _bank_pitch(max((rhp + 4) * (W + 4), max(rows, _R7_3D) * W), W)
+    return rhp, ring_chan, in_chan, 4 * ct * (7 * ring_chan + in_chan)
+
+
+@functools.lru_cache(maxsize=None)
+def chain3d_plan(B: int, D: int, H: int, W: int, C: int) -> LaunchPlan:
+    """dw_chain3d's blocks: bands of `rows` output rows (`tile`) of `ct`
+    channels of one z phase of one volume, the phase's outputs cut into
+    `parts` runs. The tallest band (the fewest dw5 halo rows recomputed) of
+    8 or 4 channels (16-byte vectors) that fits the 227 KB a block may hold,
+    the wider tile first; 4 channels instead of 8 where that alone fills
+    the card (two blocks per SM where a block fits half an SM's shared
+    memory, else one); narrower tiles only where no such band fits. Then
+    the phases are cut into runs (each recomputes 6 intermediate planes)
+    until the grid fills the card or a run is one output. Threads: one
+    8-row dilated strip each, 128 … 512. Raises where no band fits."""
+    tall = -(-H // 8) * 8
+    fits = []
+    for cts in ((8, 4), (2, 1)):
+        for rows in range(tall, 0, -8):
+            for ct in cts:
+                if ct <= _pow2_at_least(C) and chain3d_layout(H, W, ct, rows)[3] <= _SMEM_MAX:
+                    fits.append((ct, rows))
+        if fits:
+            break
+    if not fits:
+        raise ValueError(f"dw_chain3d kernel: a band of 8 rows of width {W} "
+                         "does not fit shared memory")
+    grid = lambda ct, rows, runs=1: (-(-H // rows), -(-C // ct), B * 3 * runs)
+    per_sm = lambda ct, rows: 2 if chain3d_layout(H, W, ct, rows)[3] <= _SMEM_TWO_BLOCKS else 1
+    ct, rows = fits[0]
+    if (ct == 8 and (4, rows) in fits
+            and math.prod(grid(ct, rows)) < per_sm(ct, rows) * _SMS):
+        ct = 4
+    longest = -(-D // 3)
+    runs = 1
+    while (math.prod(grid(ct, rows, runs)) < per_sm(ct, rows) * _SMS
+           and -(-longest // runs) > 1):
+        runs += 1
+    rhp, ring_chan, in_chan, smem = chain3d_layout(H, W, ct, rows)
+    strips = ct * -(-min(rows, H) // _R7_3D) * W
+    threads = min(512, max(128, -(-strips // 32) * 32))
+    return LaunchPlan(ct, (rows,), _vec(ct, C), smem, grid(ct, rows, runs), threads,
+                      _c_ints(B, D, H, W, C, ct, rows, runs, rhp, ring_chan, in_chan,
+                              smem, threads),
+                      parts=runs)
 
 
 def chain2d_smem_bytes(W: int, rows: int, ct: int) -> int:

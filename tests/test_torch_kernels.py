@@ -45,15 +45,27 @@ def _close(got, ref):
     assert err <= 1e-4 * max(1.0, ref.abs().max().item()), err
 
 
+def _deform_inputs(gen, B, S, Ci, Co, reach=2.5):
+    D, H, W = S if isinstance(S, tuple) else (S,) * 3
+    x = torch.randn(B, D, H, W, Ci, device="cuda", generator=gen)
+    off = (torch.rand(B, D, H, W, 81, device="cuda", generator=gen) * 2 - 1) * reach
+    w = torch.randn(3, 3, 3, Ci, Co, device="cuda", generator=gen) / (27 * Ci) ** 0.5
+    b = torch.randn(Co, device="cuda", generator=gen)
+    return x, off, w, b
+
+
 @pytest.mark.parametrize("B,S,Ci,Co", [(8, 32, 32, 32), (8, 16, 64, 64),
                                        (8, 8, 128, 128), (8, 4, 256, 256),
-                                       (1, (3, 5, 7), 5, 3), (2, (6, 4, 9), 40, 70)])
+                                       (2, 16, 64, 64), (2, 8, 128, 128), (2, 4, 256, 256),
+                                       (1, (3, 5, 7), 5, 3), (2, (6, 4, 9), 40, 70),
+                                       (2, (5, 7, 9), 36, 20), (1, (4, 6, 5), 6, 10),
+                                       (3, (9, 10, 11), 64, 96)])
 def test_deform_kernel_matches_plain(cuda, B, S, Ci, Co):
-    D, H, W = S if isinstance(S, tuple) else (S,) * 3
-    x = torch.randn(B, D, H, W, Ci, device="cuda", generator=cuda)
-    off = (torch.rand(B, D, H, W, 81, device="cuda", generator=cuda) * 2 - 1) * 2.5
-    w = torch.randn(3, 3, 3, Ci, Co, device="cuda", generator=cuda) / (27 * Ci) ** 0.5
-    b = torch.randn(Co, device="cuda", generator=cuda)
+    """The four stage shapes at batch 8 (K unsplit at 32³ and 16³, split
+    over taps at 8³ and 4³) and at batch 2 (split 3, 9, 27 ways); voxel
+    counts and Co that the tiles do not divide; Ci % 4 ≠ 0 and Co % 4 ≠ 0
+    (scalar accesses); Ci over one 32-channel chunk and not a multiple."""
+    x, off, w, b = _deform_inputs(cuda, B, S, Ci, Co)
     before = kernels.deform_conv3d.launches
     got = kernels.deform_conv3d(x, off, w, b)
     assert kernels.deform_conv3d.launches == before + 1
@@ -61,10 +73,43 @@ def test_deform_kernel_matches_plain(cuda, B, S, Ci, Co):
     _close(kernels.deform_conv3d(x, off, w), deform_plain(x, off, w))
 
 
+@pytest.mark.parametrize("reach", [0.05, 8.0])
+@pytest.mark.parametrize("B,S,C", [(2, 16, 64), (2, 4, 256), (1, (5, 6, 7), 12)])
+def test_deform_kernel_matches_plain_at_small_and_large_offsets(cuda, reach, B, S, C):
+    """|Δ| ≤ 0.05 (a trained checkpoint reads 0.034) and |Δ| up to 8 (as
+    main_path.drive_gates produces: most samples' corners far outside)."""
+    x, off, w, b = _deform_inputs(cuda, B, S, C, C, reach)
+    _close(kernels.deform_conv3d(x, off, w, b), deform_plain(x, off, w, b))
+
+
+@pytest.mark.parametrize("B,S,C", [(8, 32, 32), (8, 4, 256), (2, 8, 128)])
+def test_deform_kernel_is_deterministic(cuda, B, S, C):
+    """Two calls give bit-identical outputs, with K split over taps too (a
+    second pass adds the parts in a fixed order; no float atomics)."""
+    x, off, w, b = _deform_inputs(cuda, B, S, C, C)
+    assert torch.equal(kernels.deform_conv3d(x, off, w, b), kernels.deform_conv3d(x, off, w, b))
+
+
+def test_deform_kernel_on_an_unaligned_input_takes_scalar_accesses(cuda):
+    C = 8
+    buf = torch.randn(2 * 4 * 5 * 6 * C + 1, device="cuda", generator=cuda)
+    x = buf[1:].view(2, 4, 5, 6, C)
+    assert x.data_ptr() % 16 != 0
+    off = (torch.rand(2, 4, 5, 6, 81, device="cuda", generator=cuda) * 2 - 1) * 2.5
+    w = torch.randn(3, 3, 3, C, C, device="cuda", generator=cuda) / (27 * C) ** 0.5
+    _close(kernels.deform_conv3d(x, off, w), deform_plain(x, off, w))
+
+
 @pytest.mark.parametrize("B,S,C", [(8, 32, 32), (8, 16, 64), (8, 8, 128),
-                                   (8, 4, 256), (1, (5, 13, 7), 3),
-                                   (2, (20, 11, 30), 6)])
+                                   (8, 4, 256), (2, 32, 32), (2, 16, 64),
+                                   (1, (5, 13, 7), 3), (2, (20, 11, 30), 6),
+                                   (1, (7, 40, 24), 8), (1, (9, 50, 12), 5),
+                                   (2, (4, 5, 6), 8)])
 def test_chain_kernel_matches_plain(cuda, B, S, C):
+    """The four stage shapes at batch 8 and the two largest at batch 2 (z
+    phases cut into runs); planes cut into row bands (40, 50 rows), one of
+    them with C % 4 ≠ 0 (scalar accesses); channel counts that the tile does
+    not divide (3, 5, 6)."""
     D, H, W = S if isinstance(S, tuple) else (S,) * 3
     x = torch.randn(B, D, H, W, C, device="cuda", generator=cuda)
     w5 = torch.randn(5, 5, 5, 1, C, device="cuda", generator=cuda) / 125 ** 0.5
@@ -305,8 +350,15 @@ def test_dwconv3d_kernel_matches_plain(cuda, B, S, C, K, dil):
 
 def test_kernels_5_6_on_an_unaligned_input_take_scalar_accesses(cuda):
     """An input whose data does not start on 16 bytes (a view at an offset)
-    goes through the kernels' scalar path, with the same result."""
+    goes through the kernels' scalar path, with the same result; the 3D
+    chain too."""
     C = 8
+    buf = torch.randn(2 * 5 * 9 * 11 * C + 1, device="cuda", generator=cuda)
+    x = buf[1:].view(2, 5, 9, 11, C)
+    w5 = torch.randn(5, 5, 5, 1, C, device="cuda", generator=cuda) / 125 ** 0.5
+    w7 = torch.randn(7, 7, 7, 1, C, device="cuda", generator=cuda) / 343 ** 0.5
+    b = torch.randn(C, device="cuda", generator=cuda)
+    _close(kernels.dw_chain3d(x, w5, b, w7, b), chain_plain(x, w5, b, w7, b))
     buf = torch.randn(2 * 9 * 11 * C + 1, device="cuda", generator=cuda)
     x = buf[1:].view(2, 9, 11, C)
     assert x.data_ptr() % 16 != 0

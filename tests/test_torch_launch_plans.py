@@ -1,14 +1,15 @@
-"""The launch plans of the 2D LKA chain kernel (`chain2d_plan`) and the
-dilated 3D depthwise kernel (`dwconv3d_plan`), and the wrappers' lean
-dispatch, on the CPU.
+"""The launch plans of the hand kernels, the wrappers' lean dispatch, and
+the 3xTF32 split of the deform conv's channel mix, on the CPU.
 
 A plan is a pure function of the shape: the channel tile, the spatial
 split, the vector width and the shared memory of each block, and the
-grid. It is checked at every site shape of the two kernels (the three 2D
-decoder shapes at batch 24; 8³×128 K5 d3 and 4³×256 K3 d2 at batch 8) and
-at every shape of the `cuda` tests in `tests/test_torch_kernels.py`. The
-dispatch runs with the plain version standing in for the kernel, as on the
-card: exact equality (atol 0), since both sides run the same plain code.
+grid. It is checked at every site shape of its kernel (the 3D deform conv
+and the 3D LKA chain at the four stage shapes, batch 8 for inference and 2
+for training; the three 2D decoder shapes at batch 24; 8³×128 K5 d3 and
+4³×256 K3 d2 at batch 8) and at every shape of the `cuda` tests in
+`tests/test_torch_kernels.py`. The dispatch runs with the plain version
+standing in for the kernel, as on the card: exact equality (atol 0), since
+both sides run the same plain code.
 """
 
 import math
@@ -26,6 +27,14 @@ torch.set_num_threads(1)
 SMEM_MAX = 232448   # shared memory one block may hold on an H100
 SMS = 132
 
+STAGES_3D = [(32, 32), (16, 64), (8, 128), (4, 256)]   # (side, channels)
+DEFORM_SITES = [(B, S, S, S, C, C) for B in (8, 2) for S, C in STAGES_3D]
+DEFORM_TESTS = [(1, 3, 5, 7, 5, 3), (2, 6, 4, 9, 40, 70), (2, 5, 7, 9, 36, 20),
+                (1, 4, 6, 5, 6, 10), (3, 9, 10, 11, 64, 96), (1, 4, 5, 6, 8, 8),
+                (4, 4, 4, 4, 8, 8)]
+CHAIN3D_SITES = [(B, S, S, S, C) for B in (8, 2) for S, C in STAGES_3D]
+CHAIN3D_TESTS = [(1, 5, 13, 7, 3), (2, 20, 11, 30, 6), (1, 7, 40, 24, 8),
+                 (1, 9, 50, 12, 5), (1, 4, 5, 6, 8), (2, 4, 4, 4, 8)]
 CHAIN_SITES = [(24, 14, 14, 384), (24, 28, 28, 192), (24, 56, 56, 96)]
 CHAIN_TESTS = [(1, 5, 7, 3), (2, 20, 31, 6), (1, 100, 90, 2), (1, 200, 200, 1),
                (2, 33, 10, 12), (2, 64, 64, 96), (4, 56, 56, 96), (2, 14, 12, 32)]
@@ -44,6 +53,85 @@ def _check_common(plan, C):
         assert C % 4 == 0 and ct % 4 == 0
     else:
         assert plan.vec == 1
+
+
+def _ids(shapes):
+    return ["x".join(map(str, s)) for s in shapes]
+
+
+@pytest.mark.parametrize("shape", DEFORM_SITES + DEFORM_TESTS,
+                         ids=_ids(DEFORM_SITES + DEFORM_TESTS))
+def test_deform3d_plan(shape):
+    B, D, H, W, Ci, Co = shape
+    plan = kernels.deform3d_plan(*shape)
+    assert plan.smem_bytes <= SMEM_MAX
+    rows = 64  # csrc/deform3d.cu kRows
+    assert plan.smem_bytes == kernels.deform3d_smem_bytes(rows, plan.channel_tile,
+                                                          list(plan.params)[11])
+    assert plan.channel_tile == (32 if Co <= 32 else 64)
+    assert plan.threads == 128
+    # the brick: powers of two, at most `rows` voxels; the grid covers every
+    # voxel of every volume and every output channel
+    assert all(t & (t - 1) == 0 for t in plan.tile) and math.prod(plan.tile) <= rows
+    bricks = math.prod(-(-S // t) for S, t in zip((D, H, W), plan.tile))
+    assert plan.grid[0] == B * bricks
+    bn = plan.channel_tile
+    assert plan.grid[1] * bn >= Co > (plan.grid[1] - 1) * bn
+    # K over taps: `parts` runs of `taps` taps cover the 27, none empty
+    parts, taps = plan.grid[2], list(plan.params)[11]
+    assert parts == plan.parts and parts * taps >= 27 > (parts - 1) * taps
+    lz, ly, lx = list(plan.params)[7:10]
+    assert plan.tile == (1 << lz, 1 << ly, 1 << lx)
+    assert list(plan.params) == [B, D, H, W, Ci, Co, bn, lz, ly, lx, parts, taps,
+                                 plan.smem_bytes]
+    assert plan.vec == (4 if Ci % 4 == 0 and Co % 4 == 0 else 1)
+    if shape in DEFORM_SITES:
+        assert math.prod(plan.grid) >= SMS
+        assert plan.vec == 4
+        assert plan.smem_bytes <= SMEM_MAX // 2  # two blocks per SM
+
+
+def test_deform3d_plan_splits_k_only_where_the_tiles_leave_sms_idle():
+    """At batch 8 the 32³ and 16³ stages fill the card with voxel tiles
+    alone (three blocks per SM); the 8³ and 4³ stages split K over taps."""
+    plans = [kernels.deform3d_plan(8, S, S, S, C, C) for S, C in STAGES_3D]
+    assert [p.parts for p in plans[:2]] == [1, 1]
+    assert plans[2].parts > 1 and plans[3].parts > 1
+    for plan in plans:
+        assert (plan.parts == 1) == (math.prod(plan.grid[:2]) >= 3 * SMS)
+
+
+@pytest.mark.parametrize("shape", CHAIN3D_SITES + CHAIN3D_TESTS,
+                         ids=_ids(CHAIN3D_SITES + CHAIN3D_TESTS))
+def test_chain3d_plan(shape):
+    B, D, H, W, C = shape
+    plan = kernels.chain3d_plan(*shape)
+    _check_common(plan, C)
+    rows, = plan.tile
+    p = list(plan.params)
+    ct, runs, rhp, ring_chan, in_chan, smem, threads = p[5], *p[7:]
+    assert p[:7] == [B, D, H, W, C, plan.channel_tile, rows]
+    assert plan.grid[0] * rows >= H > (plan.grid[0] - 1) * rows
+    assert plan.grid[2] == B * 3 * runs and runs == plan.parts
+    # the runs cover the longest z phase, none empty
+    longest = -(-D // 3)
+    per_run = -(-longest // runs)
+    assert runs * per_run >= longest > (runs - 1) * per_run
+    # every band's rows ± 9 inside the volume fit the ring; the staged plane
+    # holds the ring's rows ± 2 and the band's output rows
+    for r0 in range(0, H, rows):
+        assert min(H, r0 + rows + 9) - max(0, r0 - 9) <= rhp
+    assert rhp >= 8 and ring_chan >= (rhp + 1) * (W + 1)
+    assert in_chan >= (rhp + 4) * (W + 4) and in_chan >= max(rows, 8) * W
+    assert smem == plan.smem_bytes == 4 * ct * (7 * ring_chan + in_chan)
+    assert kernels.chain3d_layout(H, W, ct, rows) == (rhp, ring_chan, in_chan, smem)
+    assert threads == plan.threads and threads % 32 == 0 and 128 <= threads <= 512
+    if W < 32:  # a warp's lanes along x, then across channels, on distinct banks
+        assert ring_chan % 32 == W and in_chan % 32 == W
+    if shape in CHAIN3D_SITES:
+        assert math.prod(plan.grid) >= SMS
+        assert plan.vec == 4
+        assert rows >= H  # whole planes: no dw5 halo rows recomputed
 
 
 @pytest.mark.parametrize("shape", CHAIN_SITES + CHAIN_TESTS,
@@ -86,6 +174,8 @@ def test_dwconv3d_plan(shape):
 def test_plans_raise_where_nothing_fits():
     with pytest.raises(ValueError):
         kernels.chain2d_plan(1, 14, 2000, 1)   # 14 rows of 2000 columns
+    with pytest.raises(ValueError):
+        kernels.chain3d_plan(1, 4, 30, 1000, 1)  # 7 planes of 27 rows of 1000 columns
     with pytest.raises(ValueError):
         kernels.dwconv3d_plan(1, 8, 8, 8, 1, 41, 1)  # 41³ weights alone: 276 KB
 
@@ -163,3 +253,45 @@ def test_wrappers_on_cpu_tensors_stay_plain_and_launch_nothing():
     x, w, b = _dw_inputs(seed=2)
     assert torch.equal(kernels.dwconv3d(x, w, b, 2), depthwise_conv3d_dilated(x, w, b, 2))
     assert (kernels.dw_chain2d.launches, kernels.dwconv3d.launches) == before
+
+
+def _tf32(a):
+    """cvt.rna.tf32.f32: round to the nearest value with a 10-bit mantissa,
+    ties away from zero (the 13 dropped bits of an f32)."""
+    u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _mma_sum(pairs, K):
+    """Σ over k of the products of each (A, B) pair, as the tensor cores
+    take it: each m16n8k8 product exact, added into an f32 accumulator."""
+    acc = np.zeros((pairs[0][0].shape[0], pairs[0][1].shape[1]), np.float32)
+    for k0 in range(0, K, 8):
+        for a, b in pairs:
+            part = a[:, k0:k0 + 8].astype(np.float64) @ b[k0:k0 + 8].astype(np.float64)
+            acc = (acc + part).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_3xtf32_split_meets_the_kernel_tolerance_where_one_tf32_product_does_not(seed):
+    """Why csrc/deform3d.cu splits each operand into TF32 high and low
+    parts: at the 4³×256 stage, K = 27·256, the three-product sum is held
+    to chip_smoke.py's REL_TOL = 1e-4 · max(1, max|exact|) with room to
+    spare, and one TF32 product alone is not. Operands as the kernel sees
+    them: blended samples ~ N(0, 1), weights ~ N(0, 1/K)."""
+    K = 27 * 256
+    rng = np.random.RandomState(seed)
+    a = rng.randn(64, K).astype(np.float32)
+    b = (rng.randn(K, 32) / np.sqrt(K)).astype(np.float32)
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    # hi + lo restores an operand to 2^-22 of itself
+    for x, hi, lo in ((a, a_hi, a_lo), (b, b_hi, b_lo)):
+        assert np.all(np.abs(hi.astype(np.float64) + lo - x) <= 2.0 ** -22 * np.abs(x))
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    tol = 1e-4 * max(1.0, np.abs(exact).max())
+    three = _mma_sum([(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)], K)
+    one = _mma_sum([(a_hi, b_hi)], K)
+    assert np.abs(three - exact).max() <= tol / 10
+    assert np.abs(one - exact).max() > tol

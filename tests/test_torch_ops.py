@@ -172,16 +172,3 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert kernels.deform_conv3d.launches == 0
     assert kernels.dw_chain3d.launches == 0
     assert kernels._lib is None
-
-
-@pytest.mark.parametrize("H,W,C,ct", [(32, 32, 32, 1), (16, 16, 64, 4),
-                                      (8, 8, 128, 8), (4, 4, 256, 32),
-                                      (48, 48, 24, 1)])
-def test_chain_channel_tile_fits_shared_memory(H, W, C, ct):
-    assert kernels.chain_channel_tile(H, W, C) == ct
-    assert 4 * ct * (7 * H * W + 5 * (H + 4) * (W + 4)) <= 232448
-
-
-def test_chain_channel_tile_rejects_planes_too_large():
-    with pytest.raises(ValueError):
-        kernels.chain_channel_tile(160, 160, 32)
