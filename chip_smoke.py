@@ -34,9 +34,12 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
 5. the deform backward kernel against its plain version (autograd of the
    plain forward) at the four stage shapes with batch 2, offsets uniform
    in ±2.5, TF32 off: max|err| of dx, d-offset and dw against the stated
-   tolerance, and the kernel's, the plain version's and the bound's times
-   (no PyTorch call computes a deformable-conv backward, so no library
-   time);
+   tolerance, and the kernel's (CUDA events, and device time under
+   torch.profiler), the plain version's and the bound's times; beside
+   them a yardstick, cuDNN's dense 3³ backward at the same shape
+   (`torch.nn.grad.conv3d_input` + `conv3d_weight`, the Δ = 0 channel
+   mixes alone: not the same function, and no PyTorch call computes a
+   deformable-conv backward, so no library time);
 6. the small training step, CUDA against CPU: one step of the training
    path at img_size (16, 32, 32), batch 2, deep supervision, remat, from
    the same init and batch on both: loss, grad norm, the gradients tensor
@@ -51,7 +54,9 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    relative, every parameter tensor's gradient within ‖Δg‖ ≤ 1.5e-2·‖g‖ and
    the whole gradient within 1e-3 (beside the same comparison of the plain
    step with itself on an image scaled by 1 + 1e-7: its noise floor), all
-   gradients finite and every `conv_offset.weight` gradient nonzero;
+   gradients finite and every `conv_offset.weight` gradient nonzero; and
+   the deform backward kernel's device time in one more step under
+   torch.profiler;
 8. the 2D kernels against their plain versions at the three decoder
    shapes of the 2D path (14²×384, 28²×192, 56²×96) with batch 24, TF32
    off: the depthwise deform conv at 5×5 and 7×7-dil3 (offsets uniform in
@@ -61,7 +66,9 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    `F.conv2d` as its library time (no PyTorch call computes the deform
    conv: torchvision is absent): the chain and the library call both as
    the median of 5 windows of back-to-back calls (CUDA events, the two in
-   turns) and as device time under torch.profiler;
+   turns) and as device time under torch.profiler; the deform conv as
+   CUDA events and device time, beside a yardstick, the depthwise
+   `F.conv2d(groups=C, dilation=dil)` at Δ = 0 (not the same function);
 9. the 2D path (`main_path2d.py`): `Predictor2D.predict_volume` of a
    seeded 40×512×512 case (224² patch, one chunk of 24 and a padded one
    of 16) for the flagship and the LKA Baseline at full width from seed
@@ -425,26 +432,37 @@ def phase_backward_kernel():
         report = {}
         ok = all([_rel_close(n, a, r, report)
                   for n, a, r in zip(("dx", "doff", "dw"), got, ref)])
-        ms = timed_ms(lambda: kernels.deform_conv3d_bwd(x, off, w, gy), 10)
+        del got, ref
+        kernel = lambda: kernels.deform_conv3d_bwd(x, off, w, gy)
+        ms = timed_ms(kernel, 10)
+        dms = device_ms(kernel, 10, "deform_conv3d_bwd (hand kernel)")
         pms = timed_ms(lambda: deform_bwd_plain(x, off, w, gy), 3, warmup=1)
+        # yardstick: cuDNN's dense 3³ data and weight gradients at Δ = 0
+        xn, gn = to_ncdhw(x).contiguous(), to_ncdhw(gy).contiguous()
+        wn = w.permute(4, 3, 0, 1, 2).contiguous()
+        yms = timed_ms(lambda: (torch.nn.grad.conv3d_input(xn.shape, wn, gn, padding=1),
+                                torch.nn.grad.conv3d_weight(xn, wn.shape, gn, padding=1)), 10)
         # read x, offsets, w, g once; write dx, d-offset, dw once. Per voxel
         # and tap: the two channel mixes (dsamp = g·w_kᵀ, dw += sampᵀ·g),
-        # 4·Ci·Co, plus 86·Ci for the sample's blend, the dx scatter and
-        # the offset gradient's corner differences
+        # 4·Ci·Co; per channel the sample's 8-corner blend (16), the dx
+        # scatter (16) and each corner's dot dsamp·x (16); per voxel the
+        # dot products' 8 corners scaled by the three weight derivatives (48)
         n_bytes = 4 * (B * V * (C + 81 + C) + 27 * C * C + B * V * (C + 81) + 27 * C * C)
-        flops = B * V * 27 * (4 * C * C + 86 * C)
+        flops = B * V * 27 * (4 * C * C + 48 * C + 48)
         bnd = bound_ms(n_bytes, flops)
         bms, by = _bound(bnd)
         err = max(e for e, _ in report.values())
         rows.append(dict(S=S, C=C, sites=sites, err=err, ms=ms, plain_ms=pms,
-                         lib_ms=None, **bnd))
+                         lib_ms=None, device_ms=dms, yardstick_ms=yms, **bnd))
         errs = ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in report.items())
         print(f"phase 5 deform_conv3d_bwd B={B} {S}^3 C={C}: max|err| {errs}; "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
-              "library none (no PyTorch call computes this backward)", flush=True)
+              f"kernel {ms:.4f} ms (device {dms:.4f}), plain {pms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}), library none (no PyTorch call computes this "
+              f"backward); yardstick, cuDNN's dense 3^3 backward at Δ = 0 "
+              f"(conv3d_input + conv3d_weight) {yms:.4f} ms", flush=True)
         if not ok:
             fail(f"deform_conv3d_bwd disagrees with its plain version at {S}^3 C={C}")
-        del x, off, w, gy, ref, got
+        del x, off, w, gy, xn, gn
         torch.cuda.empty_cache()
     return rows
 
@@ -527,12 +545,15 @@ def phase_train_path():
                        for n, p in path.model.named_parameters()}
     peak = torch.cuda.max_memory_allocated()
     s_step = float(np.median(times[1:]))
+    bwd_device_ms = device_profile(lambda: train_path.step(path))["by_class"][
+        "deform_conv3d_bwd (hand kernel)"]
     print(f"phase 7 training path B={TRAIN_BATCH} patch {train_path.PATCH}, remat, "
           f"deep supervision: {s_step:.4f} s/step (median of steps 2-3; steps "
           f"{', '.join(f'{t:.4f}' for t in times)} s), peak device memory "
           f"{peak / 2**30:.3f} GiB; losses {[round(l, 6) for l, _ in metrics]}, "
           f"grad norms {[round(n, 4) for _, n in metrics]}; launches per step "
-          f"{per_step}", flush=True)
+          f"{per_step}; deform_conv3d_bwd {bwd_device_ms:.3f} device-ms per step "
+          "(a fourth step under torch.profiler)", flush=True)
     for counts in per_step:
         if counts != train_path.LAUNCHES_PER_STEP:
             fail(f"training step launches {counts}, expected "
@@ -605,24 +626,34 @@ def phase_2d_kernels():
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             tol = REL_TOL * max(1.0, ref.abs().max().item())
-            ms = timed_ms(lambda: kernels.deform_dw_conv2d(x, off, w, dil), 20)
+            kernel = lambda: kernels.deform_dw_conv2d(x, off, w, dil)
+            ms = timed_ms(kernel, 20)
+            dms = device_ms(kernel, 20, "deform_dw_conv2d (hand kernel)")
             pms = timed_ms(lambda: deform2d_plain(x, off, w, dil), 3, warmup=1)
+            # yardstick: cuDNN's depthwise conv at Δ = 0, same k and dilation
+            xn = to_nchw(x).contiguous()
+            wn = w.permute(3, 2, 0, 1).contiguous()
+            yms = timed_ms(lambda: F.conv2d(xn, wn, padding=(k // 2) * dil, dilation=dil,
+                                            groups=C), 20)
             # read x, offsets and w once, write y once; per output value and
-            # tap the 4-corner bilinear blend (4 FMA) and the tap weight (1)
+            # tap the 4-corner bilinear blend (4 FMA less the first add: 7
+            # FLOP) and the tap weight (1 FMA)
             n_bytes = 4 * (B * S * S * (2 * C + 2 * K) + K * C)
-            flops = B * S * S * C * K * 2 * 5
+            flops = B * S * S * C * K * 9
             bnd = bound_ms(n_bytes, flops)
             bms, by = _bound(bnd)
             rows["deform_dw_conv2d"].append(dict(S=S, C=C, k=k, sites=2, err=err, tol=tol,
-                                                 ms=ms, plain_ms=pms, lib_ms=None, **bnd))
+                                                 ms=ms, plain_ms=pms, lib_ms=None,
+                                                 device_ms=dms, yardstick_ms=yms, **bnd))
             print(f"phase 8 deform_dw_conv2d B={B} {S}^2 C={C} k={k} dil={dil}: max|err| "
                   f"{err:.3e} (tol {tol:.3e}), |Δ|>1 share "
-                  f"{(off.abs() > 1).float().mean().item():.3f}, kernel {ms:.4f} ms, "
-                  f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), library none "
-                  "(torchvision is not installed)", flush=True)
+                  f"{(off.abs() > 1).float().mean().item():.3f}, kernel {ms:.4f} ms "
+                  f"(device {dms:.4f}), plain {pms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                  "library none (torchvision is not installed); yardstick, cuDNN's "
+                  f"depthwise F.conv2d at Δ = 0 {yms:.4f} ms", flush=True)
             if not err <= tol:
                 fail(f"deform_dw_conv2d disagrees with its plain version at {S}^2 C={C} k={k}")
-            del off, pick, ref, got
+            del off, pick, ref, got, xn
         w5 = torch.randn(5, 5, 1, C, device=dev, generator=g) / 5
         b5 = torch.randn(C, device=dev, generator=g) * 0.1
         w7 = torch.randn(7, 7, 1, C, device=dev, generator=g) / 7
@@ -852,7 +883,7 @@ def kernel_line(rows, launches):
         for key, row_key in (("device_ms", "device_ms"),
                              ("library_device_ms", "lib_device_ms")):
             out[-1][key] = per_call(row_key) if row_key in rs[0] else None
-        for key in ("small_offset_ms", "dense_conv_ms", "tc_bound_ms"):
+        for key in ("small_offset_ms", "dense_conv_ms", "tc_bound_ms", "yardstick_ms"):
             if key in rs[0]:
                 out[-1][key] = per_call(key)
     return {"kernels": out}

@@ -19,13 +19,14 @@ forward wrapper on a CUDA tensor is a `torch.autograd.Function`:
 `deform_conv3d`'s backward launches the backward kernel
 (`deform_conv3d_bwd`); those of `dw_chain3d`, `deform_dw_conv2d`,
 `dw_chain2d` and `dwconv3d` are the VJPs of their plain versions,
-recomputed. Otherwise the forward launches alone. The launchers of the
-forward kernels take their pointers and their launch plan
-(`deform3d_plan`, `chain3d_plan`, `chain2d_plan`, `dwconv3d_plan`: pure
-functions of the shape, cached) as two arrays: at the small shapes the
-host's time per call sets the pace. `wrapper.launches` counts each
-kernel's launches (the deform conv's second pass, which adds the parts of
-a split K, is part of its one call).
+recomputed. Otherwise the forward launches alone. Every launcher takes
+its pointers and its launch plan (`deform3d_plan`, `chain3d_plan`,
+`deform3d_bwd_plan`, `deform2d_dw_plan`, `chain2d_plan`, `dwconv3d_plan`:
+pure functions of the shape, cached) as two arrays: at the small shapes
+the host's time per call sets the pace. `wrapper.launches` counts each
+kernel's calls (the deform conv's second pass, which adds the parts of a
+split K, is part of its one call, as are the backward's weight GEMM and
+its sum of parts).
 """
 
 from __future__ import annotations
@@ -112,14 +113,12 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_build()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.dlka_deform_conv3d_bwd.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
-        lib.dlka_deform_conv3d_bwd.restype = i32
-        lib.dlka_deform_dw_conv2d.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
-        lib.dlka_deform_dw_conv2d.restype = i32
+        i32 = ctypes.c_int
         # (pointers, plan, vec): no argtypes, so that ctypes passes the two
         # arrays as pointers and vec as an int without converting each
         lib.dlka_deform_conv3d.restype = i32
+        lib.dlka_deform_conv3d_bwd.restype = i32
+        lib.dlka_deform_dw_conv2d.restype = i32
         lib.dlka_dw_chain3d.restype = i32
         lib.dlka_dw_chain2d.restype = i32
         lib.dlka_dwconv3d.restype = i32
@@ -165,10 +164,10 @@ _launch_args = threading.local()
 
 
 def _pointers() -> ctypes.Array:
-    """This thread's array of the pointers a launcher of kernels 5-6 takes."""
+    """This thread's array of the pointers a launcher takes."""
     buf = getattr(_launch_args, "buf", None)
     if buf is None:
-        buf = _launch_args.buf = (ctypes.c_uint64 * 8)()
+        buf = _launch_args.buf = (ctypes.c_uint64 * 10)()
     return buf
 
 
@@ -261,22 +260,38 @@ deform_conv3d.launches = 0
 def deform_conv3d_bwd(x, offset, w, g):
     """(dx, d-offset, dw) of `deform_conv3d(x, offset, w)` at the cotangent
     g (B, D, H, W, Co): the exact trilinear gradient, right derivative at
-    integer offsets. Kernel: csrc/deform3d_bwd.cu (two launches, counted
-    as one call)."""
+    integer offsets. Kernel: csrc/deform3d_bwd.cu (a data launch, a weight
+    GEMM over its samples and, where the GEMM splits the voxels, a fixed-
+    order sum of the parts: one call). Its scratch: the samples, 27 ×
+    voxels × Ci floats."""
     if not x.is_cuda:
         return deform_conv3d_backward(x, offset, w, g)
     _check_deform(x, offset, w)
     B, D, H, W, Ci = x.shape
     Co = w.shape[-1]
     _require(g, "g", (B, D, H, W, Co), x.device)
+    plan = deform3d_bwd_plan(B, D, H, W, Ci, Co)
+    n = B * D * H * W
+    if _TAPS * n * Ci >= 2 ** 31:
+        raise ValueError("deform_conv3d_bwd kernel: too many samples for its scratch")
     dx = torch.zeros_like(x)
-    doff = torch.empty_like(offset)
-    dw = torch.zeros_like(w)
-    err = library().dlka_deform_conv3d_bwd(
-        x.data_ptr(), offset.data_ptr(), w.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), doff.data_ptr(), dw.data_ptr(),
-        B, D, H, W, Ci, Co, _stream(x.device))
-    _check(err, "deform_conv3d_bwd")
+    # several channel chunks add into doff with atomics; one writes it
+    doff = torch.zeros_like(offset) if plan.grid[1] > 1 else torch.empty_like(offset)
+    dw = torch.empty_like(w)
+    samp = torch.empty(_TAPS * n * Ci, device=x.device, dtype=torch.float32)
+    part = (torch.empty(plan.parts * _TAPS * Ci * Co, device=x.device, dtype=torch.float32)
+            if plan.parts > 1 else None)
+    a = _pointers()
+    a[0] = xp = x.data_ptr()
+    a[1], a[2] = offset.data_ptr(), w.data_ptr()
+    a[3] = gp = g.data_ptr()
+    a[4], a[5], a[6] = dx.data_ptr(), doff.data_ptr(), dw.data_ptr()
+    a[7], a[8] = samp.data_ptr(), 0 if part is None else part.data_ptr()
+    a[9] = _stream(x.device)
+    vec = plan.vec if xp % 16 == 0 and gp % 16 == 0 else 1
+    err = (_lib or library()).dlka_deform_conv3d_bwd(a, plan.params, vec)
+    if err:
+        _check(err, "deform_conv3d_bwd")
     deform_conv3d_bwd.launches += 1
     return dx, doff, dw
 
@@ -363,11 +378,17 @@ def _deform_dw_forward(x, offset, w, dil):
     _require(w, "w", (k, k, 1, C), dev)
     if B * H * W * max(C, 2 * k * k) >= 2 ** 31:
         raise ValueError("deform_dw_conv2d kernel: too many elements for int32 indices")
+    plan = deform2d_dw_plan(B, H, W, C, k, dil)
     y = torch.empty_like(x)
-    err = library().dlka_deform_dw_conv2d(
-        x.data_ptr(), offset.data_ptr(), w.data_ptr(), y.data_ptr(),
-        B, H, W, C, k, dil, _stream(x.device))
-    _check(err, "deform_dw_conv2d")
+    a = _pointers()
+    a[0] = xp = x.data_ptr()
+    a[1] = offset.data_ptr()
+    a[2] = wp = w.data_ptr()
+    a[3], a[4] = y.data_ptr(), _stream(dev)
+    err = (_lib or library()).dlka_deform_dw_conv2d(
+        a, plan.params, plan.vec if xp % 16 == 0 and wp % 16 == 0 else 1)
+    if err:
+        _check(err, "deform_dw_conv2d")
     deform_dw_conv2d.launches += 1
     return y
 
@@ -467,6 +488,77 @@ def deform3d_plan(B: int, D: int, H: int, W: int, Ci: int, Co: int) -> LaunchPla
                       _c_ints(B, D, H, W, Ci, Co, bn, lz, ly, lx, parts, _TAPS // parts,
                               smem),
                       parts=parts)
+
+
+# csrc/deform3d_bwd.cu's voxels per brick, input channels per data block
+# and the weight GEMM's voxels a step
+_BWD_ROWS, _BWD_CHUNK, _BWD_STEP = 64, 32, 32
+
+
+@functools.lru_cache(maxsize=None)
+def deform3d_bwd_plan(B: int, D: int, H: int, W: int, Ci: int, Co: int) -> LaunchPlan:
+    """deform_conv3d_bwd's blocks. Data launch (`grid`, `tile`): a brick
+    of 64 voxels of one volume (`_brick`) × 32 input channels
+    (`channel_tile`) × a group of taps, the fewest of 1, 3, 9, 27 groups
+    that give eight blocks per SM. Weight GEMM: tiles of 32 × 32 (Ci, Co ≤
+    32) or 64 × 64 outputs, the voxels cut into `parts` runs of whole
+    32-voxel steps, at least 4 steps a run, until its blocks hold 16 (32 ×
+    32 tiles) or 32 warps per SM. 16-byte accesses where Ci % 4 = 0 and Co % 4 = 0. Both
+    launches use static shared memory only (`smem_bytes` 0)."""
+    lz, ly, lx = _brick(_BWD_ROWS, D, H, W)
+    chunks = -(-Ci // _BWD_CHUNK)
+    bricks = B * -(-D >> lz) * -(-H >> ly) * -(-W >> lx)
+    groups = next((t for t in (1, 3, 9) if bricks * chunks * t >= 8 * _SMS), _TAPS)
+    T = 32 if Ci <= 32 and Co <= 32 else 64
+    tiles = -(-Ci // T) * -(-Co // T)
+    warps = (T // 4) ** 2 // 32
+    n = B * D * H * W
+    steps = -(-n // _BWD_STEP)
+    # warps of GEMM blocks per SM, and at least 4 steps a part: shorter
+    # parts cost more in the sum over them than they gain (B=2, 4³×256: 2
+    # parts of 2 steps 0.074 ms, 1 part 0.065). At B=2, half the parts runs
+    # 2-7 % slower at 32³-8³, twice the parts within 1.2 %
+    # (kernel_ablation.py, H100 80GB HBM3, 700 W)
+    per_sm = 16 if T == 32 else 32
+    parts = max(1, min(steps // 4, -(-per_sm * _SMS // (tiles * _TAPS * warps))))
+    per_part = -(-steps // parts) * _BWD_STEP
+    parts = -(-n // per_part)
+    vec = 4 if Ci % 4 == 0 and Co % 4 == 0 else 1
+    return LaunchPlan(_BWD_CHUNK, (1 << lz, 1 << ly, 1 << lx), vec, 0,
+                      (bricks, chunks, groups), 256,
+                      _c_ints(B, D, H, W, Ci, Co, lz, ly, lx, chunks, groups, _TAPS // groups,
+                              T, parts, per_part),
+                      parts=parts)
+
+
+_D2D_PIXELS, _D2D_CHUNK = 32, 32   # csrc/deform2d_dw.cu: pixels a tile, channels a chunk
+
+
+@functools.lru_cache(maxsize=None)
+def deform2d_dw_plan(B: int, H: int, W: int, C: int, k: int, dil: int) -> LaunchPlan:
+    """deform_dw_conv2d's blocks: a tile of at most 32 pixels of one image
+    (`tile` = (rows, columns): of 4 … 16 columns, the one that leaves the
+    fewest of its pixels outside the image, then the one closest to 8
+    columns) × a run of whole 32-channel chunks (`channel_tile`): all of C,
+    or the fewest parts that give three blocks per SM. The shared memory:
+    the corner table (16 bytes per pixel and tap) and a chunk's tap
+    weights. 16-byte accesses along C where C % 4 = 0."""
+    def idle(tw):
+        th = _D2D_PIXELS // tw
+        return (-(-H // th) * th * -(-W // tw) * tw - H * W) / (th * tw)
+    tw = min(range(4, 17), key=lambda tw: (idle(tw), abs(tw - 8)))
+    th = _D2D_PIXELS // tw
+    tiles = B * -(-H // th) * -(-W // tw)
+    chunks = -(-C // _D2D_CHUNK)
+    parts = next((p for p in range(1, chunks) if tiles * p >= 3 * _SMS), chunks)
+    per_part = -(-chunks // parts) * _D2D_CHUNK
+    smem = k * k * (th * tw * 16 + _D2D_CHUNK * 4)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"deform_dw_conv2d kernel: a {k}x{k} corner table does not fit "
+                         "shared memory")
+    return LaunchPlan(per_part, (th, tw), 4 if C % 4 == 0 else 1, smem,
+                      (tiles, -(-C // per_part), 1), 256,
+                      _c_ints(B, H, W, C, k, dil, th, tw, per_part, smem))
 
 
 def _vec(ct: int, C: int) -> int:

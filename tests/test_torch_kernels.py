@@ -155,20 +155,67 @@ def test_model_on_the_card_matches_the_cpu_and_counts_launches(cuda):
     _close(got, ref)
 
 
+def _backward_inputs(gen, B, S, Ci, Co, reach=2.5):
+    """Offsets uniform in ±reach, a quarter of them exact integers (0 among
+    them), where the gradient is the gather's right derivative."""
+    D, H, W = S if isinstance(S, tuple) else (S,) * 3
+    x = torch.randn(B, D, H, W, Ci, device="cuda", generator=gen)
+    off = (torch.rand(B, D, H, W, 81, device="cuda", generator=gen) * 2 - 1) * reach
+    pick = torch.rand(off.shape, device="cuda", generator=gen)
+    off = torch.where(pick < 0.25, off.round(), off)
+    w = torch.randn(3, 3, 3, Ci, Co, device="cuda", generator=gen) / (27 * Ci) ** 0.5
+    g = torch.randn(B, D, H, W, Co, device="cuda", generator=gen)
+    return x, off, w, g
+
+
 @pytest.mark.parametrize("B,S,Ci,Co", [(2, 32, 32, 32), (2, 16, 64, 64),
                                        (2, 8, 128, 128), (2, 4, 256, 256),
-                                       (1, (3, 5, 7), 5, 3), (2, (6, 4, 9), 40, 70)])
+                                       (1, (3, 5, 7), 5, 3), (2, (6, 4, 9), 40, 70),
+                                       (2, (9, 10, 11), 64, 96), (1, (5, 6, 7), 36, 20),
+                                       (1, (13, 3, 6), 33, 7)])
 def test_deform_backward_kernel_matches_plain(cuda, B, S, Ci, Co):
-    D, H, W = S if isinstance(S, tuple) else (S,) * 3
-    x = torch.randn(B, D, H, W, Ci, device="cuda", generator=cuda)
-    off = (torch.rand(B, D, H, W, 81, device="cuda", generator=cuda) * 2 - 1) * 2.5
-    w = torch.randn(3, 3, 3, Ci, Co, device="cuda", generator=cuda) / (27 * Ci) ** 0.5
-    g = torch.randn(B, D, H, W, Co, device="cuda", generator=cuda)
+    """The four stage shapes at batch 2 (taps in 1, 3, 9, 27 groups, the
+    weight GEMM in parts); D, H, W that the brick does not divide; Ci and
+    Co not multiples of 4 (scalar accesses) or of 32 (part chunks)."""
+    x, off, w, g = _backward_inputs(cuda, B, S, Ci, Co)
     before = kernels.deform_conv3d_bwd.launches
     got = kernels.deform_conv3d_bwd(x, off, w, g)
     assert kernels.deform_conv3d_bwd.launches == before + 1
     for a, r in zip(got, deform_conv3d_backward(x, off, w, g)):
         _close(a, r)
+
+
+@pytest.mark.parametrize("reach", [0.05, 8.0])
+@pytest.mark.parametrize("B,S,C", [(2, 16, 64), (2, 8, 128), (2, 4, 256), (1, (5, 6, 7), 12)])
+def test_deform_backward_kernel_at_small_and_large_offsets(cuda, reach, B, S, C):
+    """|Δ| ≤ 0.05, the voxels of a brick adding into shared corners (the
+    same dx element from many lanes' atomics), and |Δ| up to 8, most
+    corners far outside the brick or outside the volume; a quarter of the
+    offsets exact integers in both."""
+    x, off, w, g = _backward_inputs(cuda, B, S, C, C, reach)
+    for a, r in zip(kernels.deform_conv3d_bwd(x, off, w, g),
+                    deform_conv3d_backward(x, off, w, g)):
+        _close(a, r)
+
+
+def test_deform_backward_kernel_on_an_unaligned_input_takes_scalar_accesses(cuda):
+    C = 8
+    _, off, w, g = _backward_inputs(cuda, 2, (4, 5, 6), C, C)
+    buf = torch.randn(2 * 4 * 5 * 6 * C + 1, device="cuda", generator=cuda)
+    x = buf[1:].view(2, 4, 5, 6, C)
+    assert x.data_ptr() % 16 != 0
+    for a, r in zip(kernels.deform_conv3d_bwd(x, off, w, g),
+                    deform_conv3d_backward(x, off, w, g)):
+        _close(a, r)
+
+
+@pytest.mark.parametrize("B,S,C", [(2, 32, 32), (2, 8, 128)])
+def test_deform_backward_kernel_weight_gradient_is_deterministic(cuda, B, S, C):
+    """dw's parts (40 of a 32 × 32 tile, 5 of 64 × 64 tiles) are added in a
+    fixed order: two calls give the same bits."""
+    x, off, w, g = _backward_inputs(cuda, B, S, C, C)
+    assert torch.equal(kernels.deform_conv3d_bwd(x, off, w, g)[2],
+                       kernels.deform_conv3d_bwd(x, off, w, g)[2])
 
 
 def test_kernel_outputs_carry_a_grad_fn(cuda):
@@ -218,10 +265,10 @@ def test_gate_gradients_on_the_card_match_the_plain_path(cuda, gate):
                else "deform_conv.conv_offset.weight"].abs().max() > 0
 
 
-def _offsets_2d(shape, gen):
-    """Offsets uniform in ±2.5, a quarter of them exact integers (0 among
+def _offsets_2d(shape, gen, reach=2.5):
+    """Offsets uniform in ±reach, a quarter of them exact integers (0 among
     them)."""
-    off = (torch.rand(shape, device="cuda", generator=gen) * 2 - 1) * 2.5
+    off = (torch.rand(shape, device="cuda", generator=gen) * 2 - 1) * reach
     pick = torch.rand(shape, device="cuda", generator=gen)
     return torch.where(pick < 0.25, off.round(), off)
 
@@ -229,8 +276,12 @@ def _offsets_2d(shape, gen):
 @pytest.mark.parametrize("B,H,W,C,k,dil", [
     (24, 14, 14, 384, 5, 1), (24, 14, 14, 384, 7, 3), (24, 28, 28, 192, 7, 3),
     (4, 56, 56, 96, 5, 1), (4, 56, 56, 96, 7, 3), (1, 9, 13, 5, 5, 1),
-    (2, 7, 5, 40, 7, 3), (1, 10, 12, 33, 3, 2)])
+    (2, 7, 5, 40, 7, 3), (1, 10, 12, 33, 3, 2), (24, 28, 28, 192, 5, 1),
+    (24, 56, 56, 96, 7, 3), (2, 3, 30, 36, 5, 1), (1, 37, 2, 6, 7, 3)])
 def test_deform_dw_kernel_matches_plain(cuda, B, H, W, C, k, dil):
+    """The six site shapes (two at batch 4); H and W that the 32-pixel tile
+    does not divide; C % 4 ≠ 0 (scalar accesses) and C not a multiple of
+    the 32-channel chunk; 14²×384 split into channel parts."""
     x = torch.randn(B, H, W, C, device="cuda", generator=cuda)
     off = _offsets_2d((B, H, W, 2 * k * k), cuda)
     w = torch.randn(k, k, 1, C, device="cuda", generator=cuda) / k
@@ -238,6 +289,28 @@ def test_deform_dw_kernel_matches_plain(cuda, B, H, W, C, k, dil):
     got = kernels.deform_dw_conv2d(x, off, w, dil)
     assert kernels.deform_dw_conv2d.launches == before + 1
     _close(got, deform2d_plain(x, off, w, dil))
+
+
+@pytest.mark.parametrize("reach", [0.05, 8.0])
+@pytest.mark.parametrize("B,H,W,C,k,dil", [(24, 14, 14, 384, 5, 1), (4, 56, 56, 96, 7, 3),
+                                           (1, 9, 13, 5, 5, 1)])
+def test_deform_dw_kernel_at_small_and_large_offsets(cuda, reach, B, H, W, C, k, dil):
+    """|Δ| ≤ 0.05 (corners shared across the tile) and up to 8 (many
+    corners outside the image), a quarter of the offsets exact integers."""
+    x = torch.randn(B, H, W, C, device="cuda", generator=cuda)
+    off = _offsets_2d((B, H, W, 2 * k * k), cuda, reach)
+    w = torch.randn(k, k, 1, C, device="cuda", generator=cuda) / k
+    _close(kernels.deform_dw_conv2d(x, off, w, dil), deform2d_plain(x, off, w, dil))
+
+
+def test_deform_dw_kernel_on_an_unaligned_input_takes_scalar_accesses(cuda):
+    C = 8
+    buf = torch.randn(2 * 9 * 11 * C + 1, device="cuda", generator=cuda)
+    x = buf[1:].view(2, 9, 11, C)
+    assert x.data_ptr() % 16 != 0
+    off = _offsets_2d((2, 9, 11, 50), cuda)
+    w = torch.randn(5, 5, 1, C, device="cuda", generator=cuda) / 5
+    _close(kernels.deform_dw_conv2d(x, off, w, 1), deform2d_plain(x, off, w, 1))
 
 
 @pytest.mark.parametrize("B,H,W,C", [(24, 14, 14, 384), (24, 28, 28, 192),

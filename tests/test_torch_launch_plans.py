@@ -5,8 +5,10 @@ A plan is a pure function of the shape: the channel tile, the spatial
 split, the vector width and the shared memory of each block, and the
 grid. It is checked at every site shape of its kernel (the 3D deform conv
 and the 3D LKA chain at the four stage shapes, batch 8 for inference and 2
-for training; the three 2D decoder shapes at batch 24; 8³×128 K5 d3 and
-4³×256 K3 d2 at batch 8) and at every shape of the `cuda` tests in
+for training; the deform conv's backward at the four stage shapes, batch
+2; the three 2D decoder shapes at batch 24, the 2D deform conv at k5 and
+k7 dil 3 on each; 8³×128 K5 d3 and 4³×256 K3 d2 at batch 8) and at every
+shape of the `cuda` tests in
 `tests/test_torch_kernels.py`. The dispatch runs with the plain version
 standing in for the kernel, as on the card: exact equality (atol 0), since
 both sides run the same plain code.
@@ -99,6 +101,82 @@ def test_deform3d_plan_splits_k_only_where_the_tiles_leave_sms_idle():
     assert plans[2].parts > 1 and plans[3].parts > 1
     for plan in plans:
         assert (plan.parts == 1) == (math.prod(plan.grid[:2]) >= 3 * SMS)
+
+
+BWD_SITES = [(2, S, S, S, C, C) for S, C in STAGES_3D]
+BWD_TESTS = [(1, 3, 5, 7, 5, 3), (2, 6, 4, 9, 40, 70), (2, 9, 10, 11, 64, 96),
+             (1, 5, 6, 7, 36, 20), (1, 13, 3, 6, 33, 7), (1, 5, 6, 7, 12, 12),
+             (2, 4, 5, 6, 8, 8), (2, 6, 7, 5, 16, 16)]
+
+
+@pytest.mark.parametrize("shape", BWD_SITES + BWD_TESTS, ids=_ids(BWD_SITES + BWD_TESTS))
+def test_deform3d_bwd_plan(shape):
+    B, D, H, W, Ci, Co = shape
+    plan = kernels.deform3d_bwd_plan(*shape)
+    p = list(plan.params)
+    lz, ly, lx, chunks, groups, taps, T, parts, per_part = p[6:]
+    assert p[:6] == [B, D, H, W, Ci, Co]
+    # the data launch: bricks of at most 64 voxels cover every volume, 32
+    # input channels a block, taps in groups that cover the 27, none empty
+    assert plan.tile == (1 << lz, 1 << ly, 1 << lx) and math.prod(plan.tile) <= 64
+    bricks = B * math.prod(-(-n // t) for n, t in zip((D, H, W), plan.tile))
+    assert plan.grid == (bricks, chunks, groups) and plan.threads == 256
+    assert plan.channel_tile == 32 and chunks * 32 >= Ci > (chunks - 1) * 32
+    assert groups in (1, 3, 9, 27) and groups * taps == 27
+    # static shared memory only: the data kernel's fixed layout is held
+    # to 48 KB by a static_assert in csrc/deform3d_bwd.cu
+    assert plan.smem_bytes == 0
+    # the weight GEMM: whole 32-voxel steps a part, the parts cover the voxels
+    n = B * D * H * W
+    assert T == (32 if Ci <= 32 and Co <= 32 else 64)
+    assert per_part % 32 == 0 and parts * per_part >= n > (parts - 1) * per_part
+    assert parts == 1 or per_part >= 4 * 32
+    assert plan.parts == parts
+    assert plan.vec == (4 if Ci % 4 == 0 and Co % 4 == 0 else 1)
+    if shape in BWD_SITES:
+        assert plan.vec == 4
+        assert math.prod(plan.grid) >= 8 * SMS or groups == 27
+        gemm_warps = -(-Ci // T) * -(-Co // T) * 27 * parts * (T // 4) ** 2 // 32
+        assert gemm_warps >= (16 if T == 32 else 32) * SMS or parts == max(1, -(-n // 32) // 4)
+
+
+def test_deform3d_bwd_plan_splits_taps_only_where_bricks_leave_sms_idle():
+    """At batch 2 the 32³ stage fills the card (eight blocks per SM) with
+    bricks in 3 tap groups, 16³ in 9; 8³ and 4³ give each tap its own
+    block."""
+    plans = [kernels.deform3d_bwd_plan(*s) for s in BWD_SITES]
+    assert [p.grid[2] for p in plans] == [3, 9, 27, 27]
+
+
+D2D_SITES = [(24, S, S, C, k, dil) for _, S, _, C in CHAIN_SITES for k, dil in ((5, 1), (7, 3))]
+D2D_TESTS = [(24, 14, 14, 384, 7, 3), (4, 56, 56, 96, 5, 1), (4, 56, 56, 96, 7, 3),
+             (1, 9, 13, 5, 5, 1), (2, 7, 5, 40, 7, 3), (1, 10, 12, 33, 3, 2),
+             (2, 3, 30, 36, 5, 1), (1, 37, 2, 6, 7, 3), (2, 9, 11, 8, 5, 1),
+             (2, 14, 12, 32, 5, 1), (2, 14, 12, 32, 7, 3), (2, 6, 6, 8, 5, 1)]
+
+
+@pytest.mark.parametrize("shape", D2D_SITES + D2D_TESTS, ids=_ids(D2D_SITES + D2D_TESTS))
+def test_deform2d_dw_plan(shape):
+    B, H, W, C, k, dil = shape
+    plan = kernels.deform2d_dw_plan(*shape)
+    th, tw = plan.tile
+    assert 4 <= tw <= 16 and th == 32 // tw
+    # no tile of 4 … 16 columns leaves fewer of its pixels outside the image
+    idle = lambda tw: ((-(-H // (32 // tw)) * (32 // tw) * -(-W // tw) * tw - H * W)
+                       / (32 // tw * tw))
+    assert idle(tw) == min(idle(t) for t in range(4, 17))
+    cpp = plan.channel_tile
+    assert cpp % 32 == 0 and plan.grid[1] * cpp >= C > (plan.grid[1] - 1) * cpp
+    assert plan.grid == (B * -(-H // th) * -(-W // tw), plan.grid[1], 1)
+    assert plan.smem_bytes == k * k * (th * tw * 16 + 32 * 4) <= SMEM_MAX
+    assert plan.threads == 256
+    assert list(plan.params) == [B, H, W, C, k, dil, th, tw, cpp, plan.smem_bytes]
+    assert plan.vec == (4 if C % 4 == 0 else 1)
+    if shape in D2D_SITES:
+        assert plan.vec == 4
+        assert math.prod(plan.grid) >= 3 * SMS
+        assert 4 * (plan.smem_bytes + 1024) <= 233472  # four blocks per SM
+        assert -(-H // th) * th == H and -(-W // tw) * tw == W  # no idle pixel
 
 
 @pytest.mark.parametrize("shape", CHAIN3D_SITES + CHAIN3D_TESTS,
