@@ -94,7 +94,26 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    same run through the plain versions: labels equal on ≥ 0.999 of voxels;
 14. the Channel-sequential Synapse model, the ACDC model and the Pancreas
    model at small size, batch 2, on the card against the same model on
-   the CPU, as phase 3.
+   the CPU, as phase 3;
+15. the Synapse CLI (`cli/predict_simple.main`, `case_path.py`): a
+   CT-like int16 case of (77, 162, 135) at spacing (3.75, 0.9, 0.9) in a
+   folder, two folds of full-width `dlka_former_synapse` from seeds 0 and
+   1 (gates driven) in `torch.save` checkpoints, TTA on, step 0.5: after
+   one warm-up forward, s/case, the preprocessed shape and tile count, the
+   host's seconds of preprocessing and restore, peak device memory and
+   launches (21 of each 3D forward kernel per forward, forwards = tiles ×
+   folds × 8 flips / the TTA batch of 8; none of the others); the written
+   NIfTI read back (shape and affine the input's, uint8, labels < 14);
+   then the same predictor through the plain versions: labels equal on ≥
+   0.999 of voxels in the original geometry;
+16. the Pancreas tester (`inference/pancreas.test_all_case`): first kernels
+   1-2 against their plain versions at the Pancreas stage shapes (48³×32,
+   24³×64, 12³×128, 6³×256, batch 1); then `dlka_net_pancreas` at patch
+   96³ (seed 0, gates driven), stride 16/16, no mirroring, count blending,
+   on a synthetic 128×128×80 case (z padded to 96: 3×3×1 tiles): s/case,
+   peak device memory, launches (21 × 9 of each 3D forward kernel), the
+   four metrics (finite, Dice in [0, 1]), then the labels through the
+   plain versions: equal on ≥ 0.999 of voxels.
 
 Then one JSON line of the kernels' numbers and, last, the contract line
 {"ok": true, "device": {...}}. Any failure exits nonzero before it.
@@ -105,15 +124,22 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deformablelka_tpu_torch import main_path, main_path2d, train_path
+from deformablelka_tpu_torch import case_path, main_path, main_path2d, train_path
+from deformablelka_tpu_torch.cli import predict_simple
 from deformablelka_tpu_torch.grad_floor import plain_versions
+from deformablelka_tpu_torch.data import nifti
+from deformablelka_tpu_torch.inference import pancreas
 from deformablelka_tpu_torch.inference.predictor2d import benchmark_inference_speed
+from deformablelka_tpu_torch.inference.predictor3d import TTA_BATCH
 from deformablelka_tpu_torch.main_path import (BLOCKS, LAUNCHES_PER_FORWARD, PATCH,
                                               SIZE_AWARE, TILES, VOLUME)
 from deformablelka_tpu_torch.models.dlka_former import (dlka_former_acdc,
@@ -143,6 +169,8 @@ DEFORM_SITES = ((5, 1), (7, 3))  # (k, dilation)
 # depthwise conv on the size-aware path: encoder stage 2 and decoder5 at
 # 8³×128, encoder stage 3 at 4³×256, three blocks each
 DW_SITES = ((8, 128, 5, 3, 6), (4, 256, 3, 2, 3))
+# (spatial size, channels) of the Pancreas model's stages at its 96³ patch
+PANCREAS_STAGES = ((48, 32), (24, 64), (12, 128), (6, 256))
 BATCH = 8
 TRAIN_BATCH = train_path.BATCH
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
@@ -844,6 +872,157 @@ def phase_dwconv3d_kernel():
     return rows
 
 
+def _expected_3d(forwards: int) -> dict:
+    """Launches of a 3D path of the published block: 21 of each 3D forward
+    kernel per forward, none of the others."""
+    return {fn.__name__: BLOCKS * forwards if fn in (kernels.deform_conv3d, kernels.dw_chain3d)
+            else 0 for fn in kernels.WRAPPERS}
+
+
+def phase_synapse_cli():
+    """Phase 15: `predict_simple` on a CT-like case with two folds, then
+    the same predictor through the plain versions."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        case = case_path.write_case(tmp / "in")
+        case_path.write_fold_checkpoints(tmp / "run")
+        warm = dlka_former_synapse(case_path.NUM_CLASSES, do_ds=False, device="cuda")
+        with torch.no_grad():  # warm-up: one batch-8 forward
+            warm(torch.zeros(TTA_BATCH, *case_path.PATCH, 1, device="cuda"))
+        del warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        predictor = predict_simple.main(case_path.predict_simple_argv(
+            tmp / "in", tmp / "out", tmp / "run"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        info = dict(predictor.last_case)
+        folds = len(predictor.engines)
+        forwards = info["tiles"] * folds * (8 // TTA_BATCH)
+        src, out = nifti.load(case), nifti.load(tmp / "out" / case.name)
+        print(f"phase 15 Synapse CLI predict_simple: case {src.data.shape} {src.data.dtype} at "
+              f"spacing {src.spacing} → preprocessed {info['preprocessed_shape']}, "
+              f"{info['tiles']} tiles x {folds} folds x 8 flips ({forwards} batch-"
+              f"{TTA_BATCH} forwards): {info['case_s']:.3f} s/case "
+              f"({wall:.3f} s for main with the models' build and checkpoint loads); host: "
+              f"preprocess {info['preprocess_s']:.3f} s, restore {info['restore_s']:.3f} s; "
+              f"prediction (folds and fetch) {info['predict_s']:.3f} s; peak device memory "
+              f"{peak / 2**30:.3f} GiB; launches {launches}", flush=True)
+        if launches != _expected_3d(forwards):
+            fail(f"Synapse CLI launches {launches}, expected {_expected_3d(forwards)}")
+        if (out.data.shape != src.data.shape or not np.array_equal(out.affine, src.affine)
+                or out.data.dtype != np.uint8 or out.data.max() >= case_path.NUM_CLASSES):
+            fail(f"bad written labels {out.data.shape} {out.data.dtype} max {out.data.max()}")
+        with plain_versions():
+            t0 = time.perf_counter()
+            seg_plain = predictor.predict_file(case, tmp / "plain.nii.gz")
+            wall_plain = time.perf_counter() - t0
+    agree = float((out.data == seg_plain).mean())
+    print(f"phase 15 Synapse CLI vs plain versions: label agreement {agree:.6f} in the original "
+          f"geometry (min {MIN_AGREEMENT}), plain run {wall_plain:.3f} s; classes in the "
+          f"labels {np.unique(out.data).size}", flush=True)
+    if agree < MIN_AGREEMENT:
+        fail("the Synapse CLI through the kernels disagrees with the plain versions")
+    del predictor
+    torch.cuda.empty_cache()
+    return launches, info["case_s"]
+
+
+def pancreas_kernel_checks():
+    """Kernels 1-2 against their plain versions at the Pancreas stage
+    shapes, batch 1 (6³ is a partial tile of kernel 1; the chain's bands
+    are taller than H at 12³ and 6³)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(97)
+    for S, C in PANCREAS_STAGES:
+        x = torch.randn(1, S, S, S, C, device=dev, generator=g)
+        off = (torch.rand(1, S, S, S, 81, device=dev, generator=g) * 2 - 1) * 2.5
+        w = torch.randn(3, 3, 3, C, C, device=dev, generator=g) / (27 * C) ** 0.5
+        b = torch.randn(C, device=dev, generator=g) * 0.1
+        err, tol = _deform_check(x, off, w, b, f"{S}^3 C={C} B=1, offsets in ±2.5")
+        ms = timed_ms(lambda: kernels.deform_conv3d(x, off, w, b), 20)
+        w5 = torch.randn(5, 5, 5, 1, C, device=dev, generator=g) / 125 ** 0.5
+        w7 = torch.randn(7, 7, 7, 1, C, device=dev, generator=g) / 343 ** 0.5
+        b5, b7 = (torch.randn(C, device=dev, generator=g) * 0.1 for _ in range(2))
+        ref = chain_plain(x, w5, b5, w7, b7)
+        got = kernels.dw_chain3d(x, w5, b5, w7, b7)
+        torch.cuda.synchronize()
+        cerr = (got - ref).abs().max().item()
+        ctol = REL_TOL * max(1.0, ref.abs().max().item())
+        cms = timed_ms(lambda: kernels.dw_chain3d(x, w5, b5, w7, b7), 20)
+        print(f"phase 16 kernels at the Pancreas stage {S}^3 C={C} B=1: deform_conv3d max|err| "
+              f"{err:.3e} (tol {tol:.3e}) {ms:.4f} ms; dw_chain3d max|err| {cerr:.3e} (tol "
+              f"{ctol:.3e}) {cms:.4f} ms (plans' tiles: deform "
+              f"{kernels.deform3d_plan(1, S, S, S, C, C).tile}, chain "
+              f"{kernels.chain3d_plan(1, S, S, S, C).tile})", flush=True)
+        if not cerr <= ctol:
+            fail(f"dw_chain3d disagrees with its plain version at {S}^3 C={C} B=1")
+        del x, off, ref, got
+    torch.cuda.empty_cache()
+
+
+def phase_pancreas_tester():
+    """Phase 16: the Pancreas tester on a synthetic case, then its labels
+    through the plain versions."""
+    pancreas_kernel_checks()
+    model = case_path.pancreas_model(seed=0)
+    sw = pancreas.make_pancreas_sliding_window(
+        model, patch_size=case_path.PANCREAS_PATCH, stride_xy=case_path.PANCREAS_STRIDE,
+        stride_z=case_path.PANCREAS_STRIDE)
+    case = case_path.pancreas_case(seed=0)
+    padded = tuple(max(s, p) for s, p in zip(case[1].shape, case_path.PANCREAS_PATCH))
+    tiles = len(sw.origins(padded))
+    with torch.no_grad():  # warm-up: one forward at the tile batch
+        model(torch.zeros(1, *case_path.PANCREAS_PATCH, 1, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    labels, window_s = [], []
+    single = pancreas.test_single_case
+
+    def recorded(*args):
+        t0 = time.perf_counter()
+        out = single(*args)
+        window_s.append(time.perf_counter() - t0)
+        labels.append(out[0])
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(pancreas, "test_single_case", recorded):
+        avg = pancreas.test_all_case(sw, [case], verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 16 Pancreas tester: case {case[1].shape} padded to {padded}, patch "
+          f"{case_path.PANCREAS_PATCH}, stride {case_path.PANCREAS_STRIDE}, {tiles} tiles "
+          f"(batch-1 forwards): {wall:.3f} s/case, of it {window_s[0]:.3f} s the sliding "
+          f"window (forwards, fetch, host argmax), the rest the host's metrics; peak "
+          f"device memory {peak / 2**30:.3f} GiB; (dice, jaccard, hd95, asd) "
+          f"{avg.tolist()}; foreground share {labels[0].mean():.4f}; launches {launches}",
+          flush=True)
+    if launches != _expected_3d(tiles):
+        fail(f"Pancreas tester launches {launches}, expected {_expected_3d(tiles)}")
+    if not (np.all(np.isfinite(avg)) and 0.0 <= avg[0] <= 1.0):
+        fail(f"bad Pancreas metrics {avg}")
+    with plain_versions():
+        t0 = time.perf_counter()
+        labels_plain, _ = pancreas.test_single_case(sw, case[1])
+        wall_plain = time.perf_counter() - t0
+    agree = float((labels[0] == labels_plain).mean())
+    print(f"phase 16 Pancreas tester vs plain versions: label agreement {agree:.6f} (min "
+          f"{MIN_AGREEMENT}), plain run {wall_plain:.3f} s", flush=True)
+    if agree < MIN_AGREEMENT:
+        fail("the Pancreas tester through the kernels disagrees with the plain versions")
+    del model, sw
+    torch.cuda.empty_cache()
+    return launches, wall
+
+
 def kernel_line(rows, launches):
     """rows[name]: the per-stage measurements; launches[name]: counts by path."""
     sources = {"deform_conv3d": ("deformablelka_tpu_torch/csrc/deform3d.cu",
@@ -911,11 +1090,15 @@ def main() -> int:
     rows["dwconv3d"] = phase_dwconv3d_kernel()
     launches_sa, _ = phase_main_path(13, SIZE_AWARE, LAUNCHES_PER_FORWARD[SIZE_AWARE])
     phase_small_configs()
+    launches_cli, _ = phase_synapse_cli()
+    launches_pancreas, _ = phase_pancreas_tester()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernel_line(rows, {
         "inference main path": launches, "training path, 3 steps": train_launches,
         **{f"2D path {c}": n for c, n in launches_2d.items()},
-        "size-aware main path": launches_sa})), flush=True)
+        "size-aware main path": launches_sa,
+        "Synapse CLI predict_simple, 1 case": launches_cli,
+        "Pancreas tester, 1 case": launches_pancreas})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,8 @@
 
 A port of the JAX package `deformablelka_tpu`, module for module: the 3D
 D-LKA Former (inference and training) with its block-variant registry and
-its Synapse, ACDC and Pancreas configurations, and the 2D MaxViT D-LKA Net
+its Synapse, ACDC and Pancreas configurations, 3D case inference through
+the `predict_simple` and `test_pancreas` CLIs, and the 2D MaxViT D-LKA Net
 (slice inference). Tensors are channels-last ((B, D, H, W, C) or (B, H,
 W, C)) at every public function, as in the JAX package, and module
 attributes keep the upstream torch names, so a state_dict converts with
@@ -21,7 +22,8 @@ at first use (`ops/kernels.py`):
   size-aware gates.
 
 Each has a plain PyTorch version beside it, which a CPU tensor takes.
-Importing this package imports nothing but torch, numpy and scipy.
+Importing this package imports nothing but torch, numpy and scipy (h5py
+only where a Pancreas h5 case is read).
 """
 
 __version__ = "0.1.0"

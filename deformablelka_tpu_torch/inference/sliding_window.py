@@ -1,12 +1,14 @@
 """Sliding-window volumetric inference with Gaussian blending and mirror TTA.
 
 Port of `deformablelka_tpu/inference/sliding_window.py` for one device:
-nnUNet's step grid (`compute_steps`), the Gaussian importance map, padding
-up to the patch, the 2^k mirror flips run `tta_batch` at a time, softmax
-averaged over the flips, blended into a numerator and a denominator on the
-device, and an argmax on the device whose uint8 result is all that comes
-back to the host. One Python loop over the tiles takes the place of the
-JAX engine's scan, shape buckets and mesh.
+nnUNet's step grid (`compute_steps`) or the Pancreas tester's stride grid
+(`compute_steps_stride`, `grid_mode="stride"`), the Gaussian importance
+map or count blending (`use_gaussian=False`), padding up to the patch,
+the 2^k mirror flips run `tta_batch` at a time, softmax averaged over the
+flips, blended into a numerator and a denominator on the device, and an
+argmax on the device whose uint8 result is all that comes back to the
+host. One Python loop over the tiles, one tile per forward, takes the
+place of the JAX engine's scan, tile batches, shape buckets and mesh.
 """
 
 from __future__ import annotations
@@ -31,6 +33,22 @@ def compute_steps(patch_size, image_size, step_size: float):
         span = image_size[dim] - patch_size[dim]
         actual = span / (nsteps[dim] - 1) if nsteps[dim] > 1 else 1e13
         steps.append([int(np.round(actual * i)) for i in range(nsteps[dim])])
+    return steps
+
+
+def compute_steps_stride(patch_size, image_size, stride_xy: int,
+                         stride_z: int):
+    """The Pancreas tester's step grid (upstream's test_util.py:75-85): per
+    dim, ceil((size-patch)/stride)+1 steps at min(stride*i, size-patch):
+    the last origin is clamped to the border, and the tiles' overlaps are
+    normalised by count blending, as upstream's repeated accumulation
+    does."""
+    strides = (stride_xy, stride_xy, stride_z)
+    steps = []
+    for dim in range(3):
+        span = image_size[dim] - patch_size[dim]
+        n = int(np.ceil(span / strides[dim])) + 1 if span > 0 else 1
+        steps.append([min(strides[dim] * i, span) for i in range(n)])
     return steps
 
 
@@ -105,12 +123,17 @@ class SlidingWindowInference:
     `apply_fn(x)` maps a (b, *patch, C) float32 tensor to logits
     (b, *patch, ncls), or to a deep-supervision list whose first entry is
     used. Volumes are (S1, S2, S3, C) numpy arrays on the host.
+    `grid_mode`: "nnunet", the evenly spaced overlap grid of `step_size`
+    (upstream's neural_network.py:267-290), or "stride", the Pancreas
+    tester's grid of fixed strides `stride_xy`, `stride_xy`, `stride_z`,
+    clamped at the border (test_util.py:75-111).
     """
 
     def __init__(self, apply_fn: Callable, patch_size, num_classes: int,
                  step_size: float = 0.5, do_mirroring: bool = True,
                  mirror_axes=(0, 1, 2), use_gaussian: bool = True,
-                 tta_batch: int = 1, device="cuda"):
+                 tta_batch: int = 1, grid_mode: str = "nnunet",
+                 stride_xy: int = 16, stride_z: int = 16, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device; pass device='cpu' to run "
@@ -123,17 +146,31 @@ class SlidingWindowInference:
         self.mirror_axes = tuple(mirror_axes)
         self.use_gaussian = use_gaussian
         self.tta_batch = tta_batch
+        if grid_mode not in ("nnunet", "stride"):
+            raise ValueError(f"grid_mode {grid_mode!r}: 'nnunet' or 'stride'")
+        self.grid_mode = grid_mode
+        self.stride_xy = stride_xy
+        self.stride_z = stride_z
 
     def origins(self, padded_shape):
-        steps = compute_steps(self.patch_size, padded_shape, self.step_size)
+        if self.grid_mode == "stride":
+            steps = compute_steps_stride(self.patch_size, padded_shape,
+                                         self.stride_xy, self.stride_z)
+        else:
+            steps = compute_steps(self.patch_size, padded_shape,
+                                  self.step_size)
         return [(a, b, c) for a in steps[0] for b in steps[1]
                 for c in steps[2]]
 
     @torch.no_grad()
-    def predict(self, volume: np.ndarray, return_device: bool = False):
+    def predict(self, volume: np.ndarray, do_mirroring: bool | None = None,
+                return_device: bool = False):
         """Class probabilities (S1, S2, S3, ncls) on the host, padding
         removed; with `return_device`, the padded device tensor and the
-        crop slicer instead."""
+        crop slicer instead. `do_mirroring` overrides the engine's setting
+        for this call only."""
+        if do_mirroring is None:
+            do_mirroring = self.do_mirroring
         data, slicer = pad_to_min(volume.astype(np.float32, copy=False),
                                   self.patch_size)
         padded_shape = data.shape[:3]
@@ -150,7 +187,7 @@ class SlidingWindowInference:
         for o in origins:
             sl = tuple(slice(s, s + p) for s, p in zip(o, self.patch_size))
             prob = mirror_tta_softmax(self.apply_fn, data[sl][None],
-                                      self.mirror_axes, self.do_mirroring,
+                                      self.mirror_axes, do_mirroring,
                                       self.tta_batch)
             num[sl] += prob * gauss[..., None]
             den[sl] += gauss

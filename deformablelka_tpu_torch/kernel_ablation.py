@@ -1,23 +1,18 @@
 """Chip ablation of a hand kernel: variants with one part removed, timed.
 
     python -m deformablelka_tpu_torch.kernel_ablation [--kernels deform3d_bwd,deform2d_dw]
-        [--parent DIR] [--json PATH]
+        [--json PATH]
 
-Each variant is the kernel's source with a few text edits (`VARIANTS`:
-each edit must match the source exactly once) and, for a current kernel,
-optionally another launch plan (`PLANS`), compiled alone by its own nvcc
-process for sm_90a (all started together) into a shared library and
-loaded with ctypes. Every variant is timed at the kernel's site shapes
+Each variant is the kernel's source in `deformablelka_tpu_torch/csrc/`
+with a few text edits (`VARIANTS`: each edit must match the source
+exactly once) and, optionally, another launch plan (`PLANS`), compiled
+alone by its own nvcc process for sm_90a (all started together) into a
+shared library and loaded with ctypes. Every variant is timed at the kernel's site shapes
 (CUDA events over back-to-back calls, each call zeroing what the kernel
 accumulates into, as the wrapper does), in turns with the full kernel; the
 full kernel is first held against its plain version. A variant computes
-something else: its time says what the removed part costs.
-
-`current` variants edit `deformablelka_tpu_torch/csrc/`; `parent`
-variants edit the first hand-written versions of kernels 3 and 4 as they
-stood before their redesign, read from `--parent DIR`
-(`git show 9ef9a99:deformablelka_tpu_torch/csrc/<file>`), called through
-their own C signature. Needs one CUDA card and nvcc.
+something else: its time says what the removed part costs. Needs one
+CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -43,33 +38,9 @@ DEFORM_SITES_2D = ((5, 1), (7, 3))
 REPS = 20
 WINDOWS = 3
 
-# (kernel, version) → [(variant, [(old text, new text), ...])]
+# kernel → [(variant, [(old text, new text), ...])]
 VARIANTS = {
-    ("deform3d_bwd", "parent"): [
-        ("full", []),
-        ("data launch only", [(
-            "  if (err != cudaSuccess) return (int)err;\n  if (Ci <= 32 && Co <= 32) {",
-            "  if (err != cudaSuccess) return (int)err;\n  return 0;\n"
-            "  if (Ci <= 32 && Co <= 32) {")]),
-        ("weight launch only", [(
-            "  deform_bwd_data_kernel<<<grid, kThreads, 0, s>>>(",
-            "  if (n_vox < 0) deform_bwd_data_kernel<<<grid, kThreads, 0, s>>>(")]),
-        ("data without its dx atomics", [(
-            "          atomicAdd(dx + at, s_wt[p][corner] * ds);\n", "")]),
-        ("data without its corner loads", [(
-            "          const float xv = __ldg(x + at);", "          const float xv = (float)at;")]),
-        ("data without its channel mix (1 of 32 steps)", [(
-            "      for (int co = 0; co < TC; ++co) {\n"
-            "        const float4 bv = *reinterpret_cast<const float4*>(&s_w[co][tc * 4]);",
-            "      for (int co = 0; co < 1; ++co) {\n"
-            "        const float4 bv = *reinterpret_cast<const float4*>(&s_w[co][tc * 4]);")]),
-        ("weight without its gather", [(
-            "__ldg(x + (size_t)idx * Ci + ci0 + ci)", "(float)idx")]),
-        ("weight without its product (1 of 64 voxels)", [(
-            "    for (int p = 0; p < TP; ++p) {\n      float sa[R], gb[R];",
-            "    for (int p = 0; p < 1; ++p) {\n      float sa[R], gb[R];")]),
-    ],
-    ("deform3d_bwd", "current"): [
+    "deform3d_bwd": [
         ("full", []),
         ("without the dx atomics", [(
             "          atomicAdd(reinterpret_cast<float4*>(dx + (size_t)id.x * Ci + cq),\n"
@@ -100,7 +71,7 @@ VARIANTS = {
         ("weight GEMM in half the parts", []),
         ("weight GEMM in twice the parts", []),
     ],
-    ("deform2d_dw", "current"): [
+    "deform2d_dw": [
         ("full", []),
         ("without its corner loads", [
             (f"const float4 v{j} = __ldg(reinterpret_cast<const float4*>(xb + (size_t)q.{c} * C + c));",
@@ -117,21 +88,6 @@ VARIANTS = {
             "cudaFuncAttributePreferredSharedMemoryCarveout, 50);",
             "cudaFuncAttributePreferredSharedMemoryCarveout, 25);")]),
         ("tiles of 16 pixels", []),
-    ],
-    ("deform2d_dw", "parent"): [
-        ("full", []),
-        ("without its corner loads", [(
-            "      float s = a.x * __ldg(xb + (size_t)q.x * C);\n"
-            "      s = fmaf(a.y, __ldg(xb + (size_t)q.y * C), s);\n"
-            "      s = fmaf(a.z, __ldg(xb + (size_t)q.z * C), s);\n"
-            "      s = fmaf(a.w, __ldg(xb + (size_t)q.w * C), s);",
-            "      float s = a.x * (float)q.x;\n"
-            "      s = fmaf(a.y, (float)q.y, s);\n"
-            "      s = fmaf(a.z, (float)q.z, s);\n"
-            "      s = fmaf(a.w, (float)q.w, s);")]),
-        ("without its offset loads", [
-            ("+ __ldg(o), -2.f)", "+ 0.3f, -2.f)"),
-            ("+ __ldg(o + 1), -2.f)", "+ 0.6f, -2.f)")]),
     ],
 }
 
@@ -242,8 +198,8 @@ class _Overlay:
             return getattr(self._base, name)
 
 
-def _bind_current(lib, base):
-    """Give a current variant's launcher the argument types `library()`
+def _bind_variant(lib, base):
+    """Give a variant's launcher the argument types `library()`
     gives the real one."""
     for name in ("dlka_deform_conv3d_bwd", "dlka_deform_dw_conv2d"):
         if hasattr(lib, name):
@@ -252,43 +208,8 @@ def _bind_current(lib, base):
     return _Overlay(lib, base)
 
 
-def _parent_bwd(lib):
-    """The parent's `dlka_deform_conv3d_bwd(x, off, w, g, dx, doff, dw, B,
-    D, H, W, Ci, Co, stream)`, its outputs zeroed as its wrapper did."""
-    fn = lib.dlka_deform_conv3d_bwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def call(x, off, w, g):
-        B, D, H, W, Ci = x.shape
-        dx, doff, dw = torch.zeros_like(x), torch.empty_like(off), torch.zeros_like(w)
-        err = fn(x.data_ptr(), off.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                 doff.data_ptr(), dw.data_ptr(), B, D, H, W, Ci, w.shape[-1],
-                 kernels._stream(x.device))
-        if err:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
-        return dx, doff, dw
-    return call
-
-
-def _parent_dw2d(lib):
-    fn = lib.dlka_deform_dw_conv2d
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def call(x, off, w, dil):
-        B, H, W, C = x.shape
-        y = torch.empty_like(x)
-        err = fn(x.data_ptr(), off.data_ptr(), w.data_ptr(), y.data_ptr(), B, H, W, C,
-                 w.shape[0], dil, kernels._stream(x.device))
-        if err:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
-        return y
-    return call
-
-
-def _current(lib, base, wrapper, plan=None):
-    overlay = _bind_current(lib, base)
+def _variant(lib, base, wrapper, plan=None):
+    overlay = _bind_variant(lib, base)
 
     def call(*args):
         saved = kernels._lib
@@ -346,22 +267,14 @@ def cases(kernel: str):
                     lambda a=(x, off, w, dil): deform2d_plain(*a)
 
 
-def ablate(kernel: str, version: str, parent: Path, workdir: Path) -> dict:
-    name = {"deform3d_bwd": "deform3d_bwd.cu", "deform2d_dw": "deform2d_dw.cu"}[kernel]
-    src = (parent if version == "parent" else kernels._PKG / "csrc") / name
-    if not src.exists():
-        raise SystemExit(f"kernel_ablation: no {src} (the parent's source: git show "
-                         f"9ef9a99:deformablelka_tpu_torch/csrc/{name} > {src})")
-    variants = VARIANTS[(kernel, version)]
-    libs = build_variants(src, variants, workdir)
-    if version == "parent":
-        make = _parent_bwd if kernel == "deform3d_bwd" else _parent_dw2d
-        calls = {v: make(lib) for v, lib in libs.items()}
-    else:
-        wrapper = kernels.deform_conv3d_bwd if kernel == "deform3d_bwd" else \
-            kernels.deform_dw_conv2d
-        base = kernels.library()
-        calls = {v: _current(lib, base, wrapper, PLANS.get(v)) for v, lib in libs.items()}
+def ablate(kernel: str, workdir: Path) -> dict:
+    src = kernels._PKG / "csrc" / {"deform3d_bwd": "deform3d_bwd.cu",
+                                   "deform2d_dw": "deform2d_dw.cu"}[kernel]
+    libs = build_variants(src, VARIANTS[kernel], workdir)
+    wrapper = kernels.deform_conv3d_bwd if kernel == "deform3d_bwd" else \
+        kernels.deform_dw_conv2d
+    base = kernels.library()
+    calls = {v: _variant(lib, base, wrapper, PLANS.get(v)) for v, lib in libs.items()}
     table = {}
     for label, args, plain in cases(kernel):
         got = calls["full"](*args)
@@ -378,7 +291,7 @@ def ablate(kernel: str, version: str, parent: Path, workdir: Path) -> dict:
         row = {v: float(np.median(t)) for v, t in times.items()}
         table[label] = row
         full = row["full"]
-        print(f"ablation {kernel} ({version}) {label}: full {full:.4f} ms (max|err| vs "
+        print(f"ablation {kernel} {label}: full {full:.4f} ms (max|err| vs "
               f"plain {max(errs):.3e}); " + "; ".join(
                   f"{v} {t:.4f} ms ({t - full:+.4f})" for v, t in row.items() if v != "full"),
               flush=True)
@@ -389,8 +302,6 @@ def ablate(kernel: str, version: str, parent: Path, workdir: Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", default="deform3d_bwd,deform2d_dw")
-    ap.add_argument("--versions", default="parent,current")
-    ap.add_argument("--parent", type=Path, default=Path("_chipcheck/parent_csrc"))
     ap.add_argument("--json", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -404,10 +315,7 @@ def main() -> int:
     out = {"device": smi}
     with tempfile.TemporaryDirectory() as tmp:
         for kernel in args.kernels.split(","):
-            for version in args.versions.split(","):
-                if (kernel, version) in VARIANTS:
-                    out[f"{kernel} ({version})"] = ablate(kernel, version, args.parent,
-                                                          Path(tmp))
+            out[kernel] = ablate(kernel, Path(tmp))
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(out, indent=1))

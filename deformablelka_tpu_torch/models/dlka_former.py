@@ -191,9 +191,11 @@ def dlka_former_acdc(num_classes: int = 4, do_ds: bool = True,
 
 
 def dlka_net_pancreas(num_classes: int = 2, do_ds: bool = False,
-                      img_size=(96, 96, 96), *, seed: int = 0,
-                      device="cuda") -> DLKAFormer:
+                      img_size=(96, 96, 96), *, trans_block: str = DEFAULT_BLOCK,
+                      seed: int = 0, device="cuda") -> DLKAFormer:
     """The NIH Pancreas D-LKA Net (96³ inputs, stem patch (2, 2, 2):
-    stages 48³…6³)."""
+    stages 48³…6³), with `trans_block` in every stage (the published block
+    unless asked)."""
     return _build(DLKAFormer(out_channels=num_classes, img_size=tuple(img_size),
-                             patch_size=(2, 2, 2), do_ds=do_ds), seed, device)
+                             patch_size=(2, 2, 2), do_ds=do_ds,
+                             trans_block=trans_block), seed, device)

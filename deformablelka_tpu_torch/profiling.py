@@ -32,25 +32,35 @@ def kernel_class(name: str) -> str:
     return "elementwise, norms, softmax, copies"
 
 
+PROFILE_ATTEMPTS = 3
+
+
 def device_profile(run) -> dict:
-    """Run `run()` once under `torch.profiler` on the card: wall time, the
+    """Run `run()` under `torch.profiler` on the card: wall time, the
     device's busy time (the union of its kernel intervals), and device time
-    by kernel class and by kernel."""
+    by kernel class and by kernel. The profiler now and then records no
+    device activity for a run of a few short kernels; the run is then
+    profiled again, up to `PROFILE_ATTEMPTS` times in all, and an error
+    raised if none recorded any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_name = [], defaultdict(float)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
-    if not spans:
-        raise RuntimeError("the profiler recorded no device activity")
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans, by_name = [], defaultdict(float)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                spans.append((e.time_range.start, e.time_range.end))
+                by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+        if spans:
+            break
+    else:
+        raise RuntimeError(f"the profiler recorded no device activity in "
+                           f"{PROFILE_ATTEMPTS} runs")
     busy, end = 0.0, -1.0
     for s, t in sorted(spans):
         if t > end:

@@ -51,11 +51,13 @@ def _flat(tree, prefix=""):
     return out
 
 
-def jax_variables(module, x, seed=0, offset_scale=8.0):
-    """Variables of the JAX `module` for input `x`: shapes from its init,
+def jax_variables(module, x, seed=0, offset_scale=8.0, shapes=None):
+    """Variables of the JAX `module` for input `x`: shapes from its init
+    (or `shapes`, a tree of them from an earlier call's `jax.eval_shape`),
     values from numpy seeded with `seed`. Offset-conv weights are
     N(0, offset_scale² / fan_in) (3D) and N(0, 9 / fan_in) (2D)."""
-    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), jnp.asarray(x))
+    if shapes is None:
+        shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), jnp.asarray(x))
     rng = np.random.RandomState(seed)
 
     def fill(path, leaf):

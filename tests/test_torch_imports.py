@@ -30,9 +30,14 @@ def test_port_modules_are_listed():
                  "nn.lka2d", "models.maxvit", "models.maxvit_dlka",
                  "evaluation.metrics", "inference.predictor2d", "main_path2d",
                  "ops.dwconv3d", "nn.blocks3d", "nn.transformer3d",
-                 "models.dlka_former", "convert.jax_params"):
+                 "models.dlka_former", "convert.jax_params", "models",
+                 "data.nifti", "data.preprocessing", "data.pancreas",
+                 "inference.sliding_window", "training.checkpoint",
+                 "inference.model_restore", "inference.predictor3d",
+                 "inference.pancreas", "cli._pancreas_models",
+                 "cli.predict_simple", "cli.test_pancreas", "case_path"):
         assert f"deformablelka_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 27
+    assert len(MODULES) >= 49
 
 
 @pytest.mark.parametrize("names", [MODULES, ["chip_smoke"]],
