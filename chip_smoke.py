@@ -113,7 +113,35 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    on a synthetic 128×128×80 case (z padded to 96: 3×3×1 tiles): s/case,
    peak device memory, launches (21 × 9 of each 3D forward kernel), the
    four metrics (finite, Dice in [0, 1]), then the labels through the
-   plain versions: equal on ≥ 0.999 of voxels.
+   plain versions: equal on ≥ 0.999 of voxels;
+17. the Synapse trainer (`cli/run_training.main`, `trainer_path.py`) on 3
+   synthetic preprocessed cases of (96, 192, 160) with 14 labels, after
+   checking that the native resampler built: step 1 of
+   `dlka_former_synapse(14, do_ds=True, remat=True)` at patch 64×128×128,
+   batch 2, on the CLI's first batch (loaded and augmented in this
+   thread), through the kernels and through the plain versions: the loss
+   within 1e-5 relative, each parameter tensor's update p' − p within
+   1.5e-2 and the whole within 1e-3 of the plain run's (phase 7's gates),
+   the online tp/fp/fn equal (or apart only by argmax flips at near-ties)
+   and 42 / 42 / 21 launches; then 2 epochs of 4 training and 2
+   validation batches (moreDA in 4 threads): s/step (the median after the
+   first), the waits on the prefetch queue, the host seconds of loading
+   and augmenting a batch, s/epoch, the checkpoint writes, peak device
+   memory, launches (42 / 42 / 21 per step, 21 / 21 / 0 per validation
+   batch); `-val` on the 2 validation cases (168 / 168 / 0 launches per
+   case, `summary.json` and `postprocessing.json` written, the labels of
+   one case ≥ 0.999 equal to the plain run's); `-c` from `model_latest`
+   (epoch, step count and losses restored); and the step on one batch with
+   the training augmenter's threads running beside it and with none, in
+   turns;
+18. the Pancreas trainer: kernel 3 against its plain version at the
+   Pancreas stage shapes with batch 2 (its max|err|, ms per launch and
+   bound); iteration 1 of `TrainerPancreas` (`dlka_net_pancreas` at 96³
+   from seed 1337, batch 2, labeled_bs 1) through the kernels and through
+   the plain versions (loss within 1e-5, updates as phase 17); 6
+   iterations: s/iteration, peak device memory, 21 / 21 / 21 launches per
+   iteration; then the port's Pancreas tester on the checkpoint
+   `d_lka_former_iter_6` (189 / 189 launches, finite metrics).
 
 Then one JSON line of the kernels' numbers and, last, the contract line
 {"ok": true, "device": {...}}. Any failure exits nonzero before it.
@@ -121,6 +149,7 @@ Then one JSON line of the kernels' numbers and, last, the contract line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -133,13 +162,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deformablelka_tpu_torch import case_path, main_path, main_path2d, train_path
-from deformablelka_tpu_torch.cli import predict_simple
+from deformablelka_tpu_torch import (case_path, main_path, main_path2d, native,
+                                     train_path, trainer_path)
+from deformablelka_tpu_torch.cli import predict_simple, run_training
 from deformablelka_tpu_torch.grad_floor import plain_versions
 from deformablelka_tpu_torch.data import nifti
+from deformablelka_tpu_torch.data.augment import ThreadedAugmenter
+from deformablelka_tpu_torch.data.dataset import load_case, load_dataset
 from deformablelka_tpu_torch.inference import pancreas
 from deformablelka_tpu_torch.inference.predictor2d import benchmark_inference_speed
 from deformablelka_tpu_torch.inference.predictor3d import TTA_BATCH
+from deformablelka_tpu_torch.inference.sliding_window import SlidingWindowInference
 from deformablelka_tpu_torch.main_path import (BLOCKS, LAUNCHES_PER_FORWARD, PATCH,
                                               SIZE_AWARE, TILES, VOLUME)
 from deformablelka_tpu_torch.models.dlka_former import (dlka_former_acdc,
@@ -156,6 +189,10 @@ from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated as dw_
 from deformablelka_tpu_torch.ops.lka import dw_chain2d as chain2d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
 from deformablelka_tpu_torch.profiling import device_profile
+from deformablelka_tpu_torch.training.losses import poly_lr
+from deformablelka_tpu_torch.training.train_step import make_sgd
+from deformablelka_tpu_torch.training.trainer3d import make_ds_train_step
+from deformablelka_tpu_torch.training.trainer_pancreas import TrainerPancreas
 
 # (spatial size, channels, transformer blocks at that stage) on the main path
 STAGES = ((32, 32, 6), (16, 64, 6), (8, 128, 6), (4, 256, 3))
@@ -354,7 +391,7 @@ def phase_small_reference(phase=3, factory=dlka_former_synapse, img=(16, 32, 32)
         ref = models["cpu"](x)
         kernels.reset_launches()
         got = models["cuda"](x.cuda()).cpu()
-    launches = launch_counts()
+    launches = kernels.launch_counts()
     err = (got - ref).abs().max().item()
     tol = 1e-3 * max(1.0, ref.abs().max().item())
     print(f"phase {phase} {factory.__name__}{kw or ''} small input {img} B=2: CUDA "
@@ -397,7 +434,7 @@ def phase_main_path(phase=4, trans_block=main_path.DEFAULT_BLOCK, expected=None)
     seg = sw.predict_segmentation(vol)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"phase {phase} main path {trans_block}: predict_segmentation {VOLUME} "
           f"patch {PATCH}, {TILES} tiles x 8 flips: {wall:.3f} s wall, peak device "
@@ -430,10 +467,6 @@ def phase_main_path(phase=4, trans_block=main_path.DEFAULT_BLOCK, expected=None)
     if max_off <= 1.0:
         fail("the offsets never reached past ±1")
     return launches, wall
-
-
-def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
 
 
 def _rel_close(name, got, ref, report):
@@ -566,7 +599,7 @@ def phase_train_path():
         m = train_path.step(path)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        per_step.append(launch_counts())
+        per_step.append(kernels.launch_counts())
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
         if i == 0:
             grads_k = {n: p.grad.detach().clone()
@@ -740,7 +773,7 @@ def phase_2d_path():
         labels = predictor.predict_volume(image)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[config] = launch_counts()
+        launches[config] = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         expected = {n: 0 for n in launches[config]}
         expected.update({n: forwards * c for n, c
@@ -898,7 +931,7 @@ def phase_synapse_cli():
             tmp / "in", tmp / "out", tmp / "run"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = launch_counts()
+        launches = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         info = dict(predictor.last_case)
         folds = len(predictor.engines)
@@ -996,7 +1029,7 @@ def phase_pancreas_tester():
         avg = pancreas.test_all_case(sw, [case], verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 16 Pancreas tester: case {case[1].shape} padded to {padded}, patch "
           f"{case_path.PANCREAS_PATCH}, stride {case_path.PANCREAS_STRIDE}, {tiles} tiles "
@@ -1021,6 +1054,346 @@ def phase_pancreas_tester():
     del model, sw
     torch.cuda.empty_cache()
     return launches, wall
+
+
+def _to_device(batch) -> dict:
+    """A host training batch on the card, as `Trainer3D` moves it."""
+    return {"data": torch.from_numpy(batch["data"]).cuda(),
+            "target": [torch.from_numpy(t).cuda().long() for t in batch["target"]]}
+
+
+def _counts_agree(counts_k, counts_p, logits_k, logits_p) -> tuple:
+    """(ok, flips): the online-eval tp/fp/fn of two runs agree, or every
+    difference comes from voxels whose argmax differs between the runs at a
+    near-tie of the plain run's top two logits (≤ 1e-4 · max|logit|); one
+    such voxel moves the counts by at most 4 in all."""
+    if all(np.array_equal(a, b) for a, b in zip(counts_k, counts_p)):
+        return True, 0
+    flips = logits_k.argmax(-1) != logits_p.argmax(-1)
+    n = int(flips.sum())
+    top2 = logits_p.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])[flips]
+    tol = 1e-4 * max(1.0, logits_p.abs().max().item())
+    l1 = sum(float(np.abs(a - b).sum()) for a, b in zip(counts_k, counts_p))
+    return n > 0 and bool((margin <= tol).all()) and l1 <= 4 * n, n
+
+
+def synapse_first_step(batch):
+    """Step 1 of the Synapse trainer (`make_ds_train_step`, the model as
+    `run_training` builds it) on `batch`, through the kernels and through
+    the plain versions: loss, update, online-eval counts."""
+    out = {}
+    for plain in (False, True):
+        model = dlka_former_synapse(trainer_path.NUM_CLASSES, do_ds=True,
+                                    img_size=trainer_path.PATCH, remat=True)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        lr = poly_lr(0, 1000, 1e-2)
+        step = make_ds_train_step(model, make_sgd(model.parameters(), lr))
+        b = _to_device(batch)
+        with plain_versions() if plain else contextlib.nullcontext():
+            with torch.no_grad():
+                logits = model(b["data"])[0]
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            m = step(b, lr)
+            loss = float(m["loss"])
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+        out[plain] = dict(loss=loss, wall=wall, launches=launches, logits=logits,
+                          counts=[m[k].cpu().numpy() for k in ("tp", "fp", "fn")],
+                          update={n: p.detach() - before[n]
+                                  for n, p in model.named_parameters()})
+        del model, before, step, b
+        torch.cuda.empty_cache()
+    k, p = out[False], out[True]
+    worst, worst_rel, whole = grad_rel(k["update"], p["update"])
+    agree, flips = _counts_agree(k["counts"], p["counts"], k["logits"], p["logits"])
+    print(f"phase 17 Synapse trainer step 1 vs plain versions ({p['wall']:.3f} s): loss "
+          f"{k['loss']:.7f} vs {p['loss']:.7f} (rtol {LOSS_RTOL}); update p' - p over "
+          f"{len(p['update'])} tensors: worst ‖Δu‖/‖u‖ {worst_rel:.3e} ({worst}; max "
+          f"{GRAD_TENSOR_RTOL}), whole {whole:.3e} (max {GRAD_RTOL}); tp/fp/fn "
+          f"{'equal' if not flips and agree else f'differ at {flips} argmax flips'}; "
+          f"launches {k['launches']}", flush=True)
+    if abs(k["loss"] - p["loss"]) > LOSS_RTOL * abs(p["loss"]):
+        fail("the trainer's loss through the kernels disagrees with the plain run")
+    if worst_rel > GRAD_TENSOR_RTOL or whole > GRAD_RTOL:
+        fail(f"the trainer's update through the kernels disagrees with the plain run ({worst})")
+    if not agree:
+        fail("the trainer's tp/fp/fn through the kernels disagree with the plain run")
+    if k["launches"] != trainer_path.LAUNCHES_PER_STEP:
+        fail(f"step 1 launches {k['launches']}, expected {trainer_path.LAUNCHES_PER_STEP}")
+
+
+def _seconds(xs) -> str:
+    return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
+
+
+def phase_synapse_trainer():
+    """Phase 17: the Synapse trainer through `run_training.main`: step 1
+    against the plain versions, 2 epochs, `-val`, `-c`."""
+    native.num_threads()
+    if not native.HAVE_NATIVE:
+        fail("the native resampler did not build (g++ -fopenmp): the augmentation "
+             "would run on scipy")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pre = tmp / "pre"
+        t0 = time.perf_counter()
+        cases = trainer_path.write_preprocessed(pre)
+        print(f"phase 17 Synapse trainer: {len(cases)} synthetic preprocessed cases of "
+              f"{trainer_path.CASE_SHAPE} written in {time.perf_counter() - t0:.3f} s; "
+              f"native resampler built, {native.num_threads()} OpenMP threads", flush=True)
+        batch = trainer_path.synchronous_batch(pre)
+        synapse_first_step(batch)
+
+        argv = trainer_path.run_training_argv(pre, tmp / "out")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with trainer_path.Recorder() as rec:
+            trainer = run_training.main(argv)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        t, launches = rec.times, rec.launches
+        steps = trainer_path.EPOCHS * trainer_path.TRAIN_BATCHES
+        print(f"phase 17 Synapse trainer run_training B={trainer_path.BATCH} patch "
+              f"{trainer_path.PATCH}, remat, moreDA in {run_training.NUM_WORKERS} threads, "
+              f"{trainer_path.EPOCHS} epochs x ({trainer_path.TRAIN_BATCHES} + "
+              f"{trainer_path.VAL_BATCHES}) batches: {float(np.median(t['step'][1:])):.4f} "
+              f"s/step (median after the first; steps {_seconds(t['step'])}); waits on the "
+              f"prefetch queue {_seconds(t['wait'])} s; host seconds per training batch in "
+              f"one worker thread (over the {len(t['augment'])} the workers made): load "
+              f"median {float(np.median(t['load'])):.3f}, augment median "
+              f"{float(np.median(t['augment'])):.3f} mean {float(np.mean(t['augment'])):.3f} "
+              f"max {max(t['augment']):.3f}; per validation batch: load "
+              f"{float(np.median(t['load_val'])):.3f}, augment "
+              f"{float(np.median(t['augment_val'])):.3f}; epochs {_seconds(t['epoch'])} s; checkpoint "
+              f"writes {_seconds(t['checkpoint_write'])} s; {wall:.3f} s for main with the "
+              f"model's build; peak device memory {peak / 2**30:.3f} GiB; losses "
+              f"{[round(l, 6) for l in trainer.all_tr_losses]}, val "
+              f"{[round(l, 6) for l in trainer.all_val_losses]}, global Dice "
+              f"{[round(d, 6) for d in trainer.all_val_eval_metrics]}", flush=True)
+        if len(t["step"]) != steps or any(c != trainer_path.LAUNCHES_PER_STEP
+                                          for c in launches["step"]):
+            fail(f"training step launches {launches['step']}, expected "
+                 f"{steps} x {trainer_path.LAUNCHES_PER_STEP}")
+        if any(c != trainer_path.LAUNCHES_PER_VAL_BATCH for c in launches["val_batch"]):
+            fail(f"validation batch launches {launches['val_batch']}, expected "
+                 f"{trainer_path.LAUNCHES_PER_VAL_BATCH}")
+        if not (trainer.epoch == trainer_path.EPOCHS and trainer.step == steps
+                and np.all(np.isfinite(trainer.all_tr_losses + trainer.all_val_losses))):
+            fail(f"bad training bookkeeping: epoch {trainer.epoch} step {trainer.step}")
+        run_launches = {n: sum(c[n] for c in launches["step"] + launches["val_batch"])
+                        for n in launches["step"][0]}
+
+        # -val: every validation case, then one of them through the plain versions
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        validator = run_training.main(argv + ["-val"])
+        torch.cuda.synchronize()
+        wall_val = time.perf_counter() - t0
+        val_launches = kernels.launch_counts()
+        val_dir = validator.output_folder / "validation"
+        val_cases = sorted(run_training.split_cases(load_dataset(pre))[1])
+        model = validator.model
+        sw = SlidingWindowInference(lambda x: model(x)[0], patch_size=trainer_path.PATCH,
+                                    num_classes=trainer_path.NUM_CLASSES, step_size=0.5,
+                                    tta_batch=TTA_BATCH)
+        tiles = len(sw.origins(trainer_path.CASE_SHAPE))
+        summary = json.loads((val_dir / "summary.json").read_text())
+        dice = [summary["results"]["mean"][str(c)]["Dice"]
+                for c in range(1, trainer_path.NUM_CLASSES)]
+        print(f"phase 17 Synapse -val: {len(val_cases)} cases of {trainer_path.CASE_SHAPE}, "
+              f"{tiles} tiles x 8 flips each (batch-{TTA_BATCH} forwards): {wall_val:.3f} s "
+              f"for main with the model's build, the predictions, summary.json and "
+              f"postprocessing.json; launches {val_launches} "
+              f"({ {n: c // len(val_cases) for n, c in val_launches.items()} } per case); "
+              f"mean foreground Dice "
+              f"{np.nanmean(dice):.4f}", flush=True)
+        if val_launches != _expected_3d(tiles * len(val_cases)):
+            fail(f"-val launches {val_launches}, expected "
+                 f"{_expected_3d(tiles * len(val_cases))}")
+        if not ((val_dir / "postprocessing.json").exists()
+                and len(summary["results"]["all"]) == len(val_cases)):
+            fail("-val did not write its summary and postprocessing decision")
+        data, _ = load_case(load_dataset(pre)[val_cases[0]])
+        vol = np.moveaxis(np.asarray(data[:-1], np.float32), 0, -1)
+        with plain_versions():
+            t0 = time.perf_counter()
+            seg_plain = sw.predict_segmentation(vol)
+            wall_plain = time.perf_counter() - t0
+        seg = np.load(val_dir / f"{val_cases[0]}.npz")["data"]
+        agree = float((seg == seg_plain).mean())
+        print(f"phase 17 Synapse -val vs plain versions on {val_cases[0]}: label agreement "
+              f"{agree:.6f} (min {MIN_AGREEMENT}), plain run {wall_plain:.3f} s", flush=True)
+        if agree < MIN_AGREEMENT:
+            fail("-val through the kernels disagrees with the plain versions")
+        del validator, model, sw
+
+        # -c: model_latest (written every 50 epochs; here by the trainer's own
+        # save), then one more epoch
+        trainer.save_checkpoint("model_latest")
+        trainer.ckpt.wait_until_finished()
+        t0 = time.perf_counter()
+        resumed = run_training.main(trainer_path.run_training_argv(
+            pre, tmp / "out", "-c", epochs=trainer_path.EPOCHS + 1))
+        wall_c = time.perf_counter() - t0
+        ok = (resumed.epoch == trainer_path.EPOCHS + 1
+              and resumed.step == steps + trainer_path.TRAIN_BATCHES
+              and resumed.all_tr_losses[:-1] == trainer.all_tr_losses)
+        print(f"phase 17 Synapse -c: resumed at epoch {trainer.epoch}, step {trainer.step}; "
+              f"ended at epoch {resumed.epoch}, step {resumed.step} in {wall_c:.3f} s; "
+              f"restored losses {'equal' if ok else 'differ'}", flush=True)
+        if not ok:
+            fail("-c did not resume from model_latest")
+        del resumed
+        augmenter_contention(trainer, pre, batch)
+        del trainer
+    torch.cuda.empty_cache()
+    return run_launches, val_launches
+
+
+def augmenter_contention(trainer, pre, batch):
+    """s/step of `trainer` on one fixed batch, with the CLI's training
+    augmenter (4 threads) running beside it and with none, in turns
+    (none, running, running, none; 3 steps each)."""
+    train, _ = run_training.split_cases(load_dataset(pre))
+    times = {"none": [], "running": []}
+    for mode in ("none", "running", "running", "none"):
+        gen = None
+        if mode == "running":
+            loader, transform = run_training.make_pipeline(
+                train, trainer_path.PATCH, trainer_path.BATCH, 99, True, "moreDA",
+                run_training.deep_supervision_scales(trainer_path.STEM))
+            gen = ThreadedAugmenter(loader, transform, num_workers=run_training.NUM_WORKERS)
+            time.sleep(1.0)  # the workers under way
+        for _ in range(3):
+            t0 = time.perf_counter()
+            trainer.train_batch(batch)
+            times[mode].append(time.perf_counter() - t0)
+        if gen is not None:
+            gen.stop()
+            for thread in gen.threads:
+                thread.join()
+    print(f"phase 17 Synapse trainer step on one batch, in turns: "
+          f"{float(np.median(times['none'])):.4f} s/step with no augmenter thread "
+          f"{_seconds(times['none'])}, {float(np.median(times['running'])):.4f} with the "
+          f"training augmenter's {run_training.NUM_WORKERS} threads running "
+          f"{_seconds(times['running'])}", flush=True)
+
+
+def pancreas_backward_checks() -> list:
+    """Kernel 3 against its plain version at the Pancreas stage shapes,
+    batch 2 (its trainer's), offsets in ±2.5."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(98)
+    rows = []
+    for S, C in PANCREAS_STAGES:
+        B, V = 2, S ** 3
+        x = torch.randn(B, S, S, S, C, device=dev, generator=g)
+        off = (torch.rand(B, S, S, S, 81, device=dev, generator=g) * 2 - 1) * 2.5
+        w = torch.randn(3, 3, 3, C, C, device=dev, generator=g) / (27 * C) ** 0.5
+        gy = torch.randn(B, S, S, S, C, device=dev, generator=g)
+        ref = deform_bwd_plain(x, off, w, gy)
+        got = kernels.deform_conv3d_bwd(x, off, w, gy)
+        torch.cuda.synchronize()
+        report = {}
+        ok = all([_rel_close(n, a, r, report)
+                  for n, a, r in zip(("dx", "doff", "dw"), got, ref)])
+        del got, ref
+        ms = timed_ms(lambda: kernels.deform_conv3d_bwd(x, off, w, gy), 10)
+        n_bytes = 4 * (B * V * (C + 81 + C) + 27 * C * C + B * V * (C + 81) + 27 * C * C)
+        bms, by = _bound(bound_ms(n_bytes, B * V * 27 * (4 * C * C + 48 * C + 48)))
+        plan = kernels.deform3d_bwd_plan(B, S, S, S, C, C)
+        rows.append(dict(S=S, C=C, ms=ms, bound_ms=bms))
+        errs = ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in report.items())
+        print(f"phase 18 deform_conv3d_bwd at the Pancreas stage {S}^3 C={C} B={B}: "
+              f"max|err| {errs}; kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}); plan grid "
+              f"{plan.grid}, GEMM parts {plan.parts}", flush=True)
+        if not ok:
+            fail(f"deform_conv3d_bwd disagrees with its plain version at {S}^3 C={C} B={B}")
+        del x, off, w, gy
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pancreas_first_iteration(tmp: Path):
+    """Iteration 1 of the Pancreas trainer through the kernels and through
+    the plain versions (there with remat, which gives the same values: the
+    plain deform conv's autograd would hold tens of GB at 48³ otherwise)."""
+    out = {}
+    for plain in (False, True):
+        model = trainer_path.pancreas_model()
+        if plain:
+            for m in model.modules():
+                if hasattr(m, "remat"):
+                    m.remat = True
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        trainer = TrainerPancreas(model, tmp / f"first_{plain}", max_iterations=1,
+                                  batch_size=trainer_path.BATCH,
+                                  labeled_bs=trainer_path.PANCREAS_LABELED)
+        trainer.initialize()
+        batch = trainer_path.pancreas_loader().next_batch()
+        with plain_versions() if plain else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            loss = float(trainer.train_step(batch["data"], batch["target"])["loss"])
+            wall = time.perf_counter() - t0
+        out[plain] = (loss, wall, {n: p.detach() - before[n]
+                                   for n, p in model.named_parameters()})
+        del model, before, trainer
+        torch.cuda.empty_cache()
+    (loss_k, _, upd_k), (loss_p, wall_p, upd_p) = out[False], out[True]
+    worst, worst_rel, whole = grad_rel(upd_k, upd_p)
+    print(f"phase 18 Pancreas trainer iteration 1 vs plain versions ({wall_p:.3f} s): loss "
+          f"{loss_k:.7f} vs {loss_p:.7f} (rtol {LOSS_RTOL}); update over {len(upd_p)} "
+          f"tensors: worst ‖Δu‖/‖u‖ {worst_rel:.3e} ({worst}; max {GRAD_TENSOR_RTOL}), "
+          f"whole {whole:.3e} (max {GRAD_RTOL})", flush=True)
+    if abs(loss_k - loss_p) > LOSS_RTOL * abs(loss_p):
+        fail("the Pancreas trainer's loss through the kernels disagrees with the plain run")
+    if worst_rel > GRAD_TENSOR_RTOL or whole > GRAD_RTOL:
+        fail(f"the Pancreas trainer's update disagrees with the plain run ({worst})")
+
+
+def phase_pancreas_trainer():
+    """Phase 18: kernel 3 at the Pancreas stages, the Pancreas trainer, then
+    the Pancreas tester on its checkpoint."""
+    rows = pancreas_backward_checks()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pancreas_first_iteration(tmp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, record = trainer_path.train_pancreas(tmp / "run")
+        peak = torch.cuda.max_memory_allocated()
+        secs = [s for s, _, _ in record]
+        per_iteration = [c for _, _, c in record]
+        print(f"phase 18 Pancreas trainer B={trainer_path.BATCH} patch "
+              f"{case_path.PANCREAS_PATCH}, labeled_bs {trainer_path.PANCREAS_LABELED}, "
+              f"{len(record)} iterations: {float(np.median(secs[1:])):.4f} s/iteration "
+              f"(median after the first; {_seconds(secs)}), peak device memory "
+              f"{peak / 2**30:.3f} GiB; losses {[round(l, 6) for _, l, _ in record]}; "
+              f"launches per iteration {per_iteration[0]}", flush=True)
+        if any(c != trainer_path.PANCREAS_LAUNCHES_PER_ITERATION for c in per_iteration):
+            fail(f"Pancreas iteration launches {per_iteration}, expected "
+                 f"{trainer_path.PANCREAS_LAUNCHES_PER_ITERATION}")
+        if not np.all(np.isfinite([l for _, l, _ in record])):
+            fail("a Pancreas training loss is not finite")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        avg = trainer_path.test_pancreas_checkpoint(tmp / "run")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        print(f"phase 18 Pancreas tester on d_lka_former_iter_{trainer_path.PANCREAS_ITERATIONS}: "
+              f"{wall:.3f} s with the model's build and checkpoint load; (dice, jaccard, "
+              f"hd95, asd) {avg.tolist()}; launches {launches}", flush=True)
+        if launches != _expected_3d(9):
+            fail(f"Pancreas tester launches {launches}, expected {_expected_3d(9)}")
+        if not (np.all(np.isfinite(avg)) and 0.0 <= avg[0] <= 1.0):
+            fail(f"bad Pancreas metrics {avg}")
+        del trainer
+    torch.cuda.empty_cache()
+    return {n: sum(c[n] for c in per_iteration) for n in per_iteration[0]}, rows
 
 
 def kernel_line(rows, launches):
@@ -1092,13 +1465,18 @@ def main() -> int:
     phase_small_configs()
     launches_cli, _ = phase_synapse_cli()
     launches_pancreas, _ = phase_pancreas_tester()
+    launches_trainer, launches_val = phase_synapse_trainer()
+    launches_pancreas_trainer, _ = phase_pancreas_trainer()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernel_line(rows, {
         "inference main path": launches, "training path, 3 steps": train_launches,
         **{f"2D path {c}": n for c, n in launches_2d.items()},
         "size-aware main path": launches_sa,
         "Synapse CLI predict_simple, 1 case": launches_cli,
-        "Pancreas tester, 1 case": launches_pancreas})), flush=True)
+        "Pancreas tester, 1 case": launches_pancreas,
+        "Synapse trainer, 2 epochs of 4 + 2 batches": launches_trainer,
+        "Synapse -val, 2 cases": launches_val,
+        "Pancreas trainer, 6 iterations": launches_pancreas_trainer})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -51,12 +51,12 @@ PANCREAS_VOLUME = (128, 128, 80)
 PANCREAS_STRIDE = 16
 
 
-def _blobs(rng, n, radius):
-    """(centres, radii) of `n` ellipsoids in the [-1, 1]³ grid of `_grid`."""
+def blobs(rng, n, radius):
+    """(centres, radii) of `n` ellipsoids in the [-1, 1]³ grid of `grid`."""
     return rng.uniform(-0.5, 0.5, (n, 3)), rng.uniform(*radius, (n, 3))
 
 
-def _grid(shape):
+def grid(shape):
     return np.meshgrid(*[np.linspace(-1, 1, s, dtype=np.float32) for s in shape],
                        indexing="ij")
 
@@ -66,11 +66,11 @@ def ct_case(seed: int = 0, shape=CASE_SHAPE) -> nifti.NiftiImage:
     elliptic body (soft tissue ~40 HU with smooth texture), organs of
     30-250 HU and a bone rim; affine diag(CASE_SPACING) with an origin."""
     rng = np.random.RandomState(seed)
-    g = _grid(shape)
+    g = grid(shape)
     body = (g[0] / 0.95) ** 2 + (g[1] / 0.85) ** 2 + (g[2] / 0.75) ** 2 < 1
     texture = gaussian_filter(rng.randn(*shape).astype(np.float32), 2.0) * 60
     hu = np.where(body, 40 + texture, -1000).astype(np.float32)
-    centres, radii = _blobs(rng, 8, (0.12, 0.3))
+    centres, radii = blobs(rng, 8, (0.12, 0.3))
     for (c, r), value in zip(zip(centres, radii), rng.uniform(30, 250, 8)):
         inside = sum(((gi - ci) / ri) ** 2 for gi, ci, ri in zip(g, c, r)) < 1
         hu[inside & body] = value + texture[inside & body] * 0.3
@@ -116,8 +116,8 @@ def pancreas_case(seed: int = 0, shape=PANCREAS_VOLUME) -> tuple:
     """("pancreas_000", image (W, H, D) float32, label (W, H, D) int32): a
     smooth z-scored volume whose label, one ellipsoid, is brighter."""
     rng = np.random.RandomState(seed)
-    g = _grid(shape)
-    c, r = _blobs(rng, 1, (0.2, 0.35))
+    g = grid(shape)
+    c, r = blobs(rng, 1, (0.2, 0.35))
     label = (sum(((gi - ci) / ri) ** 2 for gi, ci, ri in zip(g, c[0], r[0])) < 1)
     image = gaussian_filter(rng.randn(*shape).astype(np.float32), 1.5) * 2
     image = (image + 1.5 * label).astype(np.float32)

@@ -180,14 +180,17 @@ def dlka_former_synapse(num_classes: int = 14, do_ds: bool = True,
 
 
 def dlka_former_acdc(num_classes: int = 4, do_ds: bool = True,
-                     img_size=(16, 160, 160), *, seed: int = 0,
+                     img_size=(16, 160, 160), *, remat: bool = False,
+                     trans_block: str = DEFAULT_BLOCK, seed: int = 0,
                      device="cuda") -> DLKAFormer:
     """The ACDC configuration (crop 16×160×160, stem patch (1, 4, 4)).
     The ACDC code's block of the published name has dim-dependent
-    anisotropic gate kernels: the `_acdc` variant."""
+    anisotropic gate kernels: that name maps onto the `_acdc` variant."""
+    if trans_block == DEFAULT_BLOCK:
+        trans_block = DEFAULT_BLOCK + "_acdc"
     return _build(DLKAFormer(out_channels=num_classes, img_size=tuple(img_size),
-                             patch_size=(1, 4, 4), do_ds=do_ds,
-                             trans_block=DEFAULT_BLOCK + "_acdc"), seed, device)
+                             patch_size=(1, 4, 4), do_ds=do_ds, remat=remat,
+                             trans_block=trans_block), seed, device)
 
 
 def dlka_net_pancreas(num_classes: int = 2, do_ds: bool = False,

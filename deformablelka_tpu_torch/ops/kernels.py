@@ -835,3 +835,8 @@ WRAPPERS = (deform_conv3d, dw_chain3d, deform_conv3d_bwd, deform_dw_conv2d,
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """{wrapper name: its launches since the last `reset_launches`}."""
+    return {fn.__name__: fn.launches for fn in WRAPPERS}

@@ -35,9 +35,13 @@ def test_port_modules_are_listed():
                  "inference.sliding_window", "training.checkpoint",
                  "inference.model_restore", "inference.predictor3d",
                  "inference.pancreas", "cli._pancreas_models",
-                 "cli.predict_simple", "cli.test_pancreas", "case_path"):
+                 "cli.predict_simple", "cli.test_pancreas", "case_path",
+                 "native", "data.dataset", "data.augment", "training.trainer3d",
+                 "training.cascade", "training.trainer_pancreas",
+                 "evaluation.evaluator", "evaluation.postprocessing",
+                 "cli.run_training", "cli.train_pancreas", "trainer_path"):
         assert f"deformablelka_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 49
+    assert len(MODULES) >= 60
 
 
 @pytest.mark.parametrize("names", [MODULES, ["chip_smoke"]],

@@ -6,8 +6,9 @@ split, the vector width and the shared memory of each block, and the
 grid. It is checked at every site shape of its kernel (the 3D deform conv
 and the 3D LKA chain at the four stage shapes, batch 8 for inference and 2
 for training; the deform conv's backward at the four stage shapes, batch
-2; the three 2D decoder shapes at batch 24, the 2D deform conv at k5 and
-k7 dil 3 on each; 8³×128 K5 d3 and 4³×256 K3 d2 at batch 8) and at every
+2; the Pancreas model's four stage shapes at batch 2, as its trainer runs
+them, for both deform kernels and the chain; the three 2D decoder shapes
+at batch 24, the 2D deform conv at k5 and k7 dil 3 on each; 8³×128 K5 d3 and 4³×256 K3 d2 at batch 8) and at every
 shape of the `cuda` tests in
 `tests/test_torch_kernels.py`. The dispatch runs with the plain version
 standing in for the kernel, as on the card: exact equality (atol 0), since
@@ -31,12 +32,17 @@ SMS = 132
 
 STAGES_3D = [(32, 32), (16, 64), (8, 128), (4, 256)]   # (side, channels)
 DEFORM_SITES = [(B, S, S, S, C, C) for B in (8, 2) for S, C in STAGES_3D]
+# the Pancreas model's stages at its 96³ patch, batch 2 as its trainer runs
+# them (forward and backward)
+PANCREAS_STAGES = [(48, 32), (24, 64), (12, 128), (6, 256)]
+PANCREAS_SITES = [(2, S, S, S, C, C) for S, C in PANCREAS_STAGES]
 DEFORM_TESTS = [(1, 3, 5, 7, 5, 3), (2, 6, 4, 9, 40, 70), (2, 5, 7, 9, 36, 20),
                 (1, 4, 6, 5, 6, 10), (3, 9, 10, 11, 64, 96), (1, 4, 5, 6, 8, 8),
                 (4, 4, 4, 4, 8, 8)]
 CHAIN3D_SITES = [(B, S, S, S, C) for B in (8, 2) for S, C in STAGES_3D]
 CHAIN3D_TESTS = [(1, 5, 13, 7, 3), (2, 20, 11, 30, 6), (1, 7, 40, 24, 8),
-                 (1, 9, 50, 12, 5), (1, 4, 5, 6, 8), (2, 4, 4, 4, 8)]
+                 (1, 9, 50, 12, 5), (1, 4, 5, 6, 8), (2, 4, 4, 4, 8),
+                 *[(2, S, S, S, C) for S, C in PANCREAS_STAGES]]
 CHAIN_SITES = [(24, 14, 14, 384), (24, 28, 28, 192), (24, 56, 56, 96)]
 CHAIN_TESTS = [(1, 5, 7, 3), (2, 20, 31, 6), (1, 100, 90, 2), (1, 200, 200, 1),
                (2, 33, 10, 12), (2, 64, 64, 96), (4, 56, 56, 96), (2, 14, 12, 32)]
@@ -61,8 +67,8 @@ def _ids(shapes):
     return ["x".join(map(str, s)) for s in shapes]
 
 
-@pytest.mark.parametrize("shape", DEFORM_SITES + DEFORM_TESTS,
-                         ids=_ids(DEFORM_SITES + DEFORM_TESTS))
+@pytest.mark.parametrize("shape", DEFORM_SITES + PANCREAS_SITES + DEFORM_TESTS,
+                         ids=_ids(DEFORM_SITES + PANCREAS_SITES + DEFORM_TESTS))
 def test_deform3d_plan(shape):
     B, D, H, W, Ci, Co = shape
     plan = kernels.deform3d_plan(*shape)
@@ -87,7 +93,7 @@ def test_deform3d_plan(shape):
     assert list(plan.params) == [B, D, H, W, Ci, Co, bn, lz, ly, lx, parts, taps,
                                  plan.smem_bytes]
     assert plan.vec == (4 if Ci % 4 == 0 and Co % 4 == 0 else 1)
-    if shape in DEFORM_SITES:
+    if shape in DEFORM_SITES + PANCREAS_SITES:
         assert math.prod(plan.grid) >= SMS
         assert plan.vec == 4
         assert plan.smem_bytes <= SMEM_MAX // 2  # two blocks per SM
@@ -109,7 +115,8 @@ BWD_TESTS = [(1, 3, 5, 7, 5, 3), (2, 6, 4, 9, 40, 70), (2, 9, 10, 11, 64, 96),
              (2, 4, 5, 6, 8, 8), (2, 6, 7, 5, 16, 16)]
 
 
-@pytest.mark.parametrize("shape", BWD_SITES + BWD_TESTS, ids=_ids(BWD_SITES + BWD_TESTS))
+@pytest.mark.parametrize("shape", BWD_SITES + PANCREAS_SITES + BWD_TESTS,
+                         ids=_ids(BWD_SITES + PANCREAS_SITES + BWD_TESTS))
 def test_deform3d_bwd_plan(shape):
     B, D, H, W, Ci, Co = shape
     plan = kernels.deform3d_bwd_plan(*shape)
@@ -133,7 +140,7 @@ def test_deform3d_bwd_plan(shape):
     assert parts == 1 or per_part >= 4 * 32
     assert plan.parts == parts
     assert plan.vec == (4 if Ci % 4 == 0 and Co % 4 == 0 else 1)
-    if shape in BWD_SITES:
+    if shape in BWD_SITES + PANCREAS_SITES:
         assert plan.vec == 4
         assert math.prod(plan.grid) >= 8 * SMS or groups == 27
         gemm_warps = -(-Ci // T) * -(-Co // T) * 27 * parts * (T // 4) ** 2 // 32
