@@ -141,10 +141,45 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    the plain versions (loss within 1e-5, updates as phase 17); 6
    iterations: s/iteration, peak device memory, 21 / 21 / 21 launches per
    iteration; then the port's Pancreas tester on the checkpoint
-   `d_lka_former_iter_6` (189 / 189 launches, finite metrics).
+   `d_lka_former_iter_6` (189 / 189 launches, finite metrics);
+19. the 2D deform backward kernel against its plain version (autograd of
+   the plain forward) at the six decoder sites (14²×384, 28²×192, 56²×96;
+   5×5 and 7×7-dil3), batch 24, offsets uniform in ±2.5 with a quarter of
+   them exact integers, TF32 off: max|err| of dx, d-offset and dw against
+   the stated tolerance, the kernel's (CUDA events, and device time), the
+   plain version's and the bound's times; a yardstick, cuDNN's depthwise
+   `conv2d_input` + `conv2d_weight` at Δ = 0 (not the same function; no
+   PyTorch call computes this backward, so no library time);
+20. the 2D flagship's training step (`Trainer2D`, `trainer2d_path.py`) at
+   224², batch 24, 9 classes, from the CLI's seed, on one synthetic batch:
+   3 steps (s/step, the median of steps 2-3; peak device memory; finite
+   losses; exactly 12 deform forwards and 12 deform backwards per step,
+   none of the others) and the backward kernel's device time in a fourth;
+   then step 1 from the same weights through the plain versions: the loss
+   within 1e-5 relative, each parameter tensor's update and the whole
+   update within the 2D gates (over three times the noise floor printed
+   beside them: the plain step with the image × (1 + 1e-7)), every
+   `offset_net.weight` gradient nonzero; and one step with the forward
+   kernel and the recomputed plain VJP (`_PlainVjp`, what the backward
+   kernel replaced), timed;
+21. the 2D CLIs (`trainer2d_path.py`): `train_synapse2d.main` on 48
+   synthetic 512² slices (B=24, 2 epochs of 2 batches, the eval hook at
+   epoch 2 on two 40×512×512 volumes held in memory): s/step, host
+   seconds of loading and augmenting a batch, s/epoch, checkpoint writes,
+   peak device memory, 12 / 12 launches per step, the hook's Dice finite
+   in [0, 1], `best_model` written; the test CLI's volume function on
+   `best_model` (24 deform forwards per case; the host's Dice and HD95)
+   and the same volumes' labels through the plain versions: equal on ≥
+   0.999 of pixels; the LKA Baseline
+   (`--no_deform`): 3 steps (6 chain launches and no deform launch each)
+   and step 1 against the plain versions (loss within 1e-5); then
+   `train_skin.main` (224² RGB, one class, B=16, 2 epochs, test
+   evaluation): s/step, the plateau scale, the best-validation
+   checkpoint and finite skin metrics.
 
-Then one JSON line of the kernels' numbers and, last, the contract line
-{"ok": true, "device": {...}}. Any failure exits nonzero before it.
+Phase 19 runs right after phase 8, the others in order. Then one JSON
+line of the kernels' numbers and, last, the contract line {"ok": true,
+"device": {...}}. Any failure exits nonzero before it.
 """
 
 from __future__ import annotations
@@ -163,8 +198,9 @@ import torch
 import torch.nn.functional as F
 
 from deformablelka_tpu_torch import (case_path, main_path, main_path2d, native,
-                                     train_path, trainer_path)
-from deformablelka_tpu_torch.cli import predict_simple, run_training
+                                     train_path, trainer2d_path, trainer_path)
+from deformablelka_tpu_torch.cli import (predict_simple, run_training, test_synapse2d,
+                                         train_skin, train_synapse2d)
 from deformablelka_tpu_torch.grad_floor import plain_versions
 from deformablelka_tpu_torch.data import nifti
 from deformablelka_tpu_torch.data.augment import ThreadedAugmenter
@@ -183,6 +219,7 @@ from deformablelka_tpu_torch.nn.lka2d import DeformConv
 from deformablelka_tpu_torch.ops import kernels
 from deformablelka_tpu_torch.ops.convs import to_nchw, to_ncdhw
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform2d_plain
+from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d_backward as deform2d_bwd_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward as deform_bwd_plain
 from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated as dw_plain
@@ -667,6 +704,14 @@ def phase_train_path():
     return per_step, s_step
 
 
+def _offsets_2d(shape, g):
+    """Offsets uniform in ±2.5 on the card, a quarter of them exact
+    integers (0 among them)."""
+    off = (torch.rand(shape, device="cuda", generator=g) * 2 - 1) * 2.5
+    pick = torch.rand(shape, device="cuda", generator=g)
+    return torch.where(pick < 0.25, off.round(), off)
+
+
 def phase_2d_kernels():
     """The 2D kernels against their plain versions at the decoder shapes."""
     dev = torch.device("cuda")
@@ -677,10 +722,7 @@ def phase_2d_kernels():
         x = torch.randn(B, S, S, C, device=dev, generator=g)
         for k, dil in DEFORM_SITES:
             K = k * k
-            # offsets uniform in ±2.5, a quarter of them exact integers
-            off = (torch.rand(B, S, S, 2 * K, device=dev, generator=g) * 2 - 1) * 2.5
-            pick = torch.rand(off.shape, device=dev, generator=g)
-            off = torch.where(pick < 0.25, off.round(), off)
+            off = _offsets_2d((B, S, S, 2 * K), g)
             w = torch.randn(k, k, 1, C, device=dev, generator=g) / k
             ref = deform2d_plain(x, off, w, dil)
             got = kernels.deform_dw_conv2d(x, off, w, dil)
@@ -714,7 +756,7 @@ def phase_2d_kernels():
                   f"depthwise F.conv2d at Δ = 0 {yms:.4f} ms", flush=True)
             if not err <= tol:
                 fail(f"deform_dw_conv2d disagrees with its plain version at {S}^2 C={C} k={k}")
-            del off, pick, ref, got, xn
+            del off, ref, got, xn
         w5 = torch.randn(5, 5, 1, C, device=dev, generator=g) / 5
         b5 = torch.randn(C, device=dev, generator=g) * 0.1
         w7 = torch.randn(7, 7, 1, C, device=dev, generator=g) / 7
@@ -1396,6 +1438,302 @@ def phase_pancreas_trainer():
     return {n: sum(c[n] for c in per_iteration) for n in per_iteration[0]}, rows
 
 
+def phase_2d_backward_kernel():
+    """Phase 19: the 2D deform backward kernel against autograd of the
+    plain forward at the six decoder sites, batch 24."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2025)
+    rows = []
+    B = trainer2d_path.BATCH
+    for S, C in DECODER:
+        x = torch.randn(B, S, S, C, device=dev, generator=g)
+        gy = torch.randn(B, S, S, C, device=dev, generator=g)
+        for k, dil in DEFORM_SITES:
+            K = k * k
+            off = _offsets_2d((B, S, S, 2 * K), g)
+            w = torch.randn(k, k, 1, C, device=dev, generator=g) / k
+            ref = deform2d_bwd_plain(x, off, w, gy, dil)
+            got = kernels.deform_dw_conv2d_bwd(x, off, w, gy, dil)
+            torch.cuda.synchronize()
+            report = {}
+            ok = all([_rel_close(n, a, r, report)
+                      for n, a, r in zip(("dx", "doff", "dw"), got, ref)])
+            del got, ref
+            kernel = lambda: kernels.deform_dw_conv2d_bwd(x, off, w, gy, dil)
+            ms = timed_ms(kernel, 10)
+            dms = device_ms(kernel, 10, "deform_dw_conv2d_bwd (hand kernel)")
+            pms = timed_ms(lambda: deform2d_bwd_plain(x, off, w, gy, dil), 2, warmup=1)
+            # yardstick: cuDNN's depthwise data and weight gradients at Δ = 0
+            xn, gn = to_nchw(x).contiguous(), to_nchw(gy).contiguous()
+            wn = w.permute(3, 2, 0, 1).contiguous()
+            pad = (k // 2) * dil
+            yms = timed_ms(lambda: (
+                torch.nn.grad.conv2d_input(xn.shape, wn, gn, padding=pad, dilation=dil, groups=C),
+                torch.nn.grad.conv2d_weight(xn, wn.shape, gn, padding=pad, dilation=dil,
+                                            groups=C)), 10)
+            # read x, offsets, w, g once; write dx, d-offset, dw once. Per
+            # pixel, tap and channel: the 4-corner blend and its two
+            # derivatives (3 × 7), g·w (1), the dw product (2), the two
+            # offset dot products (4), the 4 dx contributions (4); per
+            # pixel and tap the 12 corner coefficients (24)
+            n_bytes = 4 * (B * S * S * (2 * C + 2 * K) + K * C + B * S * S * (C + 2 * K) + K * C)
+            flops = B * S * S * K * (32 * C + 24)
+            bnd = bound_ms(n_bytes, flops)
+            bms, by = _bound(bnd)
+            err = max(e for e, _ in report.values())
+            rows.append(dict(S=S, C=C, k=k, sites=2, err=err, ms=ms, plain_ms=pms, lib_ms=None,
+                             device_ms=dms, yardstick_ms=yms, **bnd))
+            errs = ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in report.items())
+            print(f"phase 19 deform_dw_conv2d_bwd B={B} {S}^2 C={C} k={k} dil={dil}: max|err| "
+                  f"{errs}; kernel {ms:.4f} ms (device {dms:.4f}), plain {pms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({by}), library none (no PyTorch call computes this "
+                  f"backward); yardstick, cuDNN's depthwise conv2d_input + conv2d_weight at "
+                  f"Δ = 0 {yms:.4f} ms", flush=True)
+            if not ok:
+                fail(f"deform_dw_conv2d_bwd disagrees with its plain version at {S}^2 C={C} "
+                     f"k={k}")
+            del off, w, xn, gn
+        del x, gy
+        torch.cuda.empty_cache()
+    return rows
+
+
+# Phase 20's gates on the 2D flagship's first update, kernels vs plain
+# versions, ‖Δu‖ ≤ rtol · ‖u‖ per tensor and as a whole. Two correct plain
+# steps differ by up to 2.588e-4 per tensor and 2.246e-6 as a whole (the
+# image scaled by 1 + 1e-7, or the batch's samples swapped; the kernels
+# against plain 1.511e-4 and 1.98e-6: `python -m
+# deformablelka_tpu_torch.grad_floor --two_d`, seeds 0-2, H100 80GB HBM3,
+# 700 W); each gate is over three times the largest reading.
+GRAD2D_TENSOR_RTOL = 1e-3
+GRAD2D_RTOL = 1e-5
+
+
+def _first_update_2d(batch, config="dlka", patch=None, scale=1.0):
+    """(loss, update p' − p, gradients, seconds) of step 1 of `config`'s
+    Trainer2D from the CLI's seed on `batch`, the wrappers patched by the
+    context `patch` (or not), the image scaled by `scale`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = trainer2d_path.step_trainer(tmp, config)
+    params = dict(trainer.model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    b = dict(batch, image=batch["image"] * np.float32(scale))
+    with patch if patch is not None else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(b))
+        wall = time.perf_counter() - t0
+    out = (loss, {n: p.detach() - before[n] for n, p in params.items()},
+           {n: p.grad.detach().clone() for n, p in params.items()}, wall)
+    del trainer, before, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_steps_2d(batch, config, steps=3):
+    """`steps` steps of `config`'s Trainer2D on `batch`: (seconds, losses,
+    launches, per step), the trainer and the peak device memory."""
+    tmp = tempfile.TemporaryDirectory()
+    trainer = trainer2d_path.step_trainer(tmp.name, config)
+    tmp.cleanup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, per_step = [], [], []
+    for _ in range(steps):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(batch)))
+        times.append(time.perf_counter() - t0)
+        per_step.append(kernels.launch_counts())
+    return times, losses, per_step, trainer, torch.cuda.max_memory_allocated()
+
+
+def phase_2d_train_step():
+    """Phase 20: the flagship's Trainer2D step at full size, step 1 against
+    the plain versions and the noise floor, one step through `_PlainVjp`."""
+    batch = trainer2d_path.synthetic_batch(0)
+    times, losses, per_step, trainer, peak = _train_steps_2d(batch, "dlka")
+    bwd_device_ms = device_profile(lambda: trainer.train_step(batch))["by_class"][
+        "deform_dw_conv2d_bwd (hand kernel)"]
+    del trainer
+    torch.cuda.empty_cache()
+    s_step = float(np.median(times[1:]))
+    print(f"phase 20 2D flagship Trainer2D step B={trainer2d_path.BATCH} "
+          f"{trainer2d_path.IMG}^2, {trainer2d_path.NUM_CLASSES} classes: {s_step:.4f} s/step "
+          f"(median of steps 2-3; steps {_seconds(times)} s), peak device memory "
+          f"{peak / 2**30:.3f} GiB; losses {[round(l, 6) for l in losses]}; launches per "
+          f"step {per_step[0]}; deform_dw_conv2d_bwd {bwd_device_ms:.3f} device-ms per step "
+          "(a fourth step under torch.profiler)", flush=True)
+    if any(c != trainer2d_path.LAUNCHES_PER_STEP["dlka"] for c in per_step):
+        fail(f"2D training step launches {per_step}, expected "
+             f"{trainer2d_path.LAUNCHES_PER_STEP['dlka']}")
+    if not np.all(np.isfinite(losses)):
+        fail("a 2D training loss is not finite")
+    loss_k, upd_k, grads_k, _ = _first_update_2d(batch)
+    loss_p, upd_p, _, wall_p = _first_update_2d(batch, patch=plain_versions())
+    _, upd_f, _, _ = _first_update_2d(batch, patch=plain_versions(), scale=1 + 1e-7)
+    # the forward kernel with the recomputed plain VJP (what `_PlainVjp`
+    # did): the training path before the backward kernel
+    _, _, _, wall_vjp = _first_update_2d(
+        batch, patch=mock.patch.object(kernels, "deform_dw_conv2d_bwd", deform2d_bwd_plain))
+    worst, worst_rel, whole = grad_rel(upd_k, upd_p)
+    floor_worst, floor_rel, floor_whole = grad_rel(upd_f, upd_p)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    offset_grads = {n: grads_k[n].abs().max().item() for n in grads_k
+                    if n.endswith("offset_net.weight")}
+    print(f"phase 20 noise floor, plain step 1 with the image x (1 + 1e-7) vs plain step 1: "
+          f"worst per-tensor ‖Δu‖/‖u‖ {floor_rel:.3e} ({floor_worst}), whole update "
+          f"{floor_whole:.3e}", flush=True)
+    print(f"phase 20 step 1 vs plain versions ({wall_p:.3f} s): loss {loss_k:.7f} vs "
+          f"{loss_p:.7f} (rtol {LOSS_RTOL}); update p' - p over {len(upd_p)} tensors: worst "
+          f"‖Δu‖/‖u‖ {worst_rel:.3e} ({worst}; max {GRAD2D_TENSOR_RTOL}), whole {whole:.3e} "
+          f"(max {GRAD2D_RTOL}); gradients finite {finite}; offset_net.weight gradients "
+          f"nonzero in {sum(v > 0 for v in offset_grads.values())} of {len(offset_grads)} "
+          f"deform convs (smallest max|g| {min(offset_grads.values()):.3e}); one step with "
+          f"the forward kernel and the recomputed plain VJP (_PlainVjp) {wall_vjp:.3f} s",
+          flush=True)
+    if abs(loss_k - loss_p) > LOSS_RTOL * abs(loss_p):
+        fail("the 2D training loss through the kernels disagrees with the plain run")
+    if worst_rel > GRAD2D_TENSOR_RTOL or whole > GRAD2D_RTOL:
+        fail(f"the 2D update through the kernels disagrees with the plain run ({worst})")
+    if not finite:
+        fail("a 2D gradient is not finite")
+    if len(offset_grads) != 12 or min(offset_grads.values()) <= 0:
+        fail("an offset_net.weight got no gradient")
+    return per_step, s_step
+
+
+def _synapse2d_cli(tmp: Path) -> dict:
+    """`train_synapse2d.main` on the 2D path's slices, the eval hook on its
+    volumes; then the test CLI's volume function on `best_model`, through
+    the kernels and the plain versions."""
+    t0 = time.perf_counter()
+    trainer2d_path.write_slices(tmp / "slices", tmp / "lists")
+    cases = trainer2d_path.volumes()
+    print(f"phase 21 Synapse 2D: {trainer2d_path.BATCH * trainer2d_path.TRAIN_BATCHES} "
+          f"synthetic {trainer2d_path.SLICE}^2 slices and {len(cases)} volumes of "
+          f"{trainer2d_path.VOLUME} made in {time.perf_counter() - t0:.3f} s", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with trainer2d_path.Recorder() as rec:
+        trainer = train_synapse2d.main(
+            trainer2d_path.synapse_argv(tmp / "slices", tmp / "lists", tmp / "out"),
+            eval_cases=cases)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t = rec.times
+    steps = trainer2d_path.EPOCHS * trainer2d_path.TRAIN_BATCHES
+    dice = [d for _, d in trainer.eval_results]
+    print(f"phase 21 Synapse 2D train_synapse2d B={trainer2d_path.BATCH} "
+          f"{trainer2d_path.IMG}^2, {trainer2d_path.EPOCHS} epochs x "
+          f"{trainer2d_path.TRAIN_BATCHES} batches: {float(np.median(t['step'][1:])):.4f} "
+          f"s/step (median after the first; steps {_seconds(t['step'])}); host seconds per "
+          f"batch, loaded and augmented in the training thread: {_seconds(t['batch'])}; "
+          f"epochs {_seconds(trainer.epoch_times)} s; checkpoint writes "
+          f"{_seconds(t['checkpoint_write'])} s; eval hook (epoch, mean Dice) "
+          f"{trainer.eval_results}; {wall:.3f} s for main with the model's build; peak "
+          f"device memory {peak / 2**30:.3f} GiB; losses {[round(l, 6) for l in trainer.losses]}; "
+          f"launches per step {rec.launches[0]}", flush=True)
+    if len(rec.launches) != steps or any(c != trainer2d_path.LAUNCHES_PER_STEP["dlka"]
+                                         for c in rec.launches):
+        fail(f"train_synapse2d step launches {rec.launches}")
+    if not (len(dice) == 1 and trainer.eval_results[0][0] == trainer2d_path.EPOCHS
+            and np.isfinite(dice[0]) and 0.0 <= dice[0] <= 1.0):
+        fail(f"bad eval hook results {trainer.eval_results}")
+    if not ((tmp / "out" / "ckpt" / "best_model").is_dir()
+            and np.all(np.isfinite(trainer.losses)) and trainer.step == steps):
+        fail("train_synapse2d did not train or write best_model")
+    step_launches = {n: sum(c[n] for c in rec.launches) for n in rec.launches[0]}
+    del trainer
+
+    predictor = test_synapse2d.load_predictor(tmp / "out")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = test_synapse2d.evaluate_volumes(predictor, cases)
+    wall = time.perf_counter() - t0
+    test_launches = kernels.launch_counts()
+    # the labels alone through the plain versions (the host's surface
+    # metrics of a barely trained model's labels take ~39 s a volume)
+    with plain_versions():
+        t0 = time.perf_counter()
+        labels_p = [predictor.predict_volume(image) for image, _, _ in cases]
+        wall_p = time.perf_counter() - t0
+    agree = min(float((r[3] == lp).mean()) for r, lp in zip(res, labels_p))
+    forwards = len(cases) * -(-trainer2d_path.VOLUME[0] // BATCH_2D)
+    expected = {n: 0 for n in test_launches}
+    expected["deform_dw_conv2d"] = 12 * forwards
+    print(f"phase 21 Synapse 2D test CLI (evaluate_volumes) on best_model: {wall:.3f} s for "
+          f"{len(cases)} volumes, mean Dice {[round(r[1], 4) for r in res]}, launches "
+          f"{test_launches}; vs plain versions ({wall_p:.3f} s): label agreement {agree:.6f} "
+          f"(min {MIN_AGREEMENT})", flush=True)
+    if test_launches != expected:
+        fail(f"test CLI launches {test_launches}, expected {expected}")
+    if agree < MIN_AGREEMENT:
+        fail("the test CLI's labels through the kernels disagree with the plain versions")
+    del predictor
+    torch.cuda.empty_cache()
+    return step_launches
+
+
+def _lka_baseline_step():
+    """The LKA Baseline's (`--no_deform`) Trainer2D step: 3 steps, then step
+    1 against the plain versions."""
+    batch = trainer2d_path.synthetic_batch(1)
+    times, losses, per_step, trainer, peak = _train_steps_2d(batch, "lka_baseline")
+    del trainer
+    torch.cuda.empty_cache()
+    loss_k = _first_update_2d(batch, "lka_baseline")[0]
+    loss_p = _first_update_2d(batch, "lka_baseline", patch=plain_versions())[0]
+    print(f"phase 21 LKA Baseline (--no_deform) Trainer2D step B={trainer2d_path.BATCH}: "
+          f"{float(np.median(times[1:])):.4f} s/step (steps {_seconds(times)}), peak device "
+          f"memory {peak / 2**30:.3f} GiB, launches per step {per_step[0]}; step 1 loss "
+          f"{loss_k:.7f} vs plain {loss_p:.7f} (rtol {LOSS_RTOL})", flush=True)
+    if any(c != trainer2d_path.LAUNCHES_PER_STEP["lka_baseline"] for c in per_step):
+        fail(f"LKA Baseline step launches {per_step}")
+    if not (np.all(np.isfinite(losses)) and abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p)):
+        fail("the LKA Baseline's loss through the kernels disagrees with the plain run")
+    return {n: sum(c[n] for c in per_step) for n in per_step[0]}
+
+
+def _skin_cli(tmp: Path) -> dict:
+    root = trainer2d_path.write_skin(tmp / "skin")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with trainer2d_path.Recorder() as rec:
+        trainer = train_skin.main(trainer2d_path.skin_argv(root, tmp / "skin_out"))
+    peak = torch.cuda.max_memory_allocated()
+    t = rec.times
+    best = trainer.test_metrics["best"]
+    metrics = {k: best[k] for k in ("dsc", "accuracy", "specificity", "sensitivity")}
+    print(f"phase 21 skin train_skin B={trainer2d_path.SKIN_BATCH} {trainer2d_path.IMG}^2 "
+          f"RGB, 1 class, {trainer2d_path.EPOCHS} epochs of "
+          f"{trainer2d_path.SKIN_SPLITS[0] // trainer2d_path.SKIN_BATCH} batches: "
+          f"{float(np.median(t['step'][1:])):.4f} s/step (steps {_seconds(t['step'])}); "
+          f"epochs with validation {_seconds(trainer.epoch_times)} s; checkpoint writes "
+          f"{_seconds(t['checkpoint_write'])} s; best val loss {trainer.best_val_loss:.6f}, "
+          f"plateau scale {trainer.scheduler.scale}; test {metrics}; peak device memory "
+          f"{peak / 2**30:.3f} GiB; launches per step {rec.launches[0]}", flush=True)
+    if any(c != trainer2d_path.LAUNCHES_PER_STEP["dlka"] for c in rec.launches):
+        fail(f"skin step launches {rec.launches}")
+    if not ((tmp / "skin_out" / "best_model").is_dir() and np.isfinite(trainer.best_val_loss)
+            and trainer.scheduler.scale == 1.0 and np.all(np.isfinite(list(metrics.values())))):
+        fail("train_skin did not write its best checkpoint or its metrics are not finite")
+    return {n: sum(c[n] for c in rec.launches) for n in rec.launches[0]}
+
+
+def phase_2d_clis():
+    """Phase 21: train_synapse2d, the test CLI's volume function, the LKA
+    Baseline's step and train_skin."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        synapse = _synapse2d_cli(tmp)
+        baseline = _lka_baseline_step()
+        skin = _skin_cli(tmp)
+    torch.cuda.empty_cache()
+    return synapse, baseline, skin
+
+
 def kernel_line(rows, launches):
     """rows[name]: the per-stage measurements; launches[name]: counts by path."""
     sources = {"deform_conv3d": ("deformablelka_tpu_torch/csrc/deform3d.cu",
@@ -1406,6 +1744,9 @@ def kernel_line(rows, launches):
                                      "deformablelka_tpu/ops/pallas/deform3d_bwd_kernel.py:182"),
                "deform_dw_conv2d": ("deformablelka_tpu_torch/csrc/deform2d_dw.cu",
                                     "deformablelka_tpu/ops/pallas/deform2d_kernel.py:182"),
+               "deform_dw_conv2d_bwd": ("deformablelka_tpu_torch/csrc/deform2d_dw_bwd.cu",
+                                        "deformablelka_tpu/ops/pallas/deform2d_kernel.py:194 "
+                                        "(its VJP; deformablelka_tpu/ops/deform2d.py:336)"),
                "dw_chain2d": ("deformablelka_tpu_torch/csrc/dw_chain2d.cu",
                               "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:261"),
                "dwconv3d": ("deformablelka_tpu_torch/csrc/dwconv3d.cu",
@@ -1414,6 +1755,7 @@ def kernel_line(rows, launches):
            "dw_chain3d": "one forward at batch 8: the 21 launches at the four stage shapes",
            "deform_conv3d_bwd": "one training step at batch 2: the 21 launches at the four stage shapes",
            "deform_dw_conv2d": "one flagship forward at batch 24: the 12 launches at the three decoder shapes",
+           "deform_dw_conv2d_bwd": "one flagship training step at batch 24: the 12 launches at the three decoder shapes",
            "dw_chain2d": "one LKA Baseline forward at batch 24: the 6 launches at the three decoder shapes",
            "dwconv3d": "one forward at batch 8: the 9 launches at 8³×128 (5³ dil 3) and 4³×256 (3³ dil 2)"}
     out = []
@@ -1457,6 +1799,9 @@ def main() -> int:
     per_step, _ = phase_train_path()
     train_launches = {n: sum(c[n] for c in per_step) for n in per_step[0]}
     rows.update(phase_2d_kernels())
+    # phase 19 beside the other 2D kernels: late in a long run torch.profiler
+    # dropped most of its kernel records (PERF.md §7)
+    rows["deform_dw_conv2d_bwd"] = phase_2d_backward_kernel()
     launches_2d, _ = phase_2d_path()
     phase_2d_small_reference()
     phase_2d_latency()
@@ -1467,6 +1812,8 @@ def main() -> int:
     launches_pancreas, _ = phase_pancreas_tester()
     launches_trainer, launches_val = phase_synapse_trainer()
     launches_pancreas_trainer, _ = phase_pancreas_trainer()
+    per_step_2d, _ = phase_2d_train_step()
+    launches_synapse2d, launches_baseline2d, launches_skin = phase_2d_clis()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernel_line(rows, {
         "inference main path": launches, "training path, 3 steps": train_launches,
@@ -1476,7 +1823,12 @@ def main() -> int:
         "Pancreas tester, 1 case": launches_pancreas,
         "Synapse trainer, 2 epochs of 4 + 2 batches": launches_trainer,
         "Synapse -val, 2 cases": launches_val,
-        "Pancreas trainer, 6 iterations": launches_pancreas_trainer})), flush=True)
+        "Pancreas trainer, 6 iterations": launches_pancreas_trainer,
+        "2D flagship Trainer2D, 3 steps": {n: sum(c[n] for c in per_step_2d)
+                                           for n in per_step_2d[0]},
+        "train_synapse2d, 2 epochs of 2 batches": launches_synapse2d,
+        "LKA Baseline Trainer2D, 3 steps": launches_baseline2d,
+        "train_skin, 2 epochs of 2 batches": launches_skin})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

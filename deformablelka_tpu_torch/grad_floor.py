@@ -1,6 +1,6 @@
 """How far two correct runs of one training step differ, tensor by tensor.
 
-    python -m deformablelka_tpu_torch.grad_floor [--small] [--seeds 0 1 2]
+    python -m deformablelka_tpu_torch.grad_floor [--small | --two_d] [--seeds 0 1 2]
 
 `chip_smoke.py` holds step 1 of the training path through the hand kernels
 against the same step through the plain versions (phase 7), and the small
@@ -18,6 +18,11 @@ runs that are all correct, for each seed:
   sample sees the same offsets;
 - the run under test: the hand kernels on the card.
 
+With `--two_d` the step is the 2D flagship's: `Trainer2D`'s step on one
+synthetic batch at 224², batch 24 (`trainer2d_path.step_trainer`,
+`synthetic_batch`; `chip_smoke.py` phase 20), with the card as the
+reference and the offsets' floors read at its 12 deform sites.
+
 For each run against the reference it prints the largest per-tensor
 ‖Δg‖/‖g‖ (g the gradient) and ‖Δu‖/‖u‖ (u the step's update) with its
 tensor, the whole gradient's and update's, the number of tensors above
@@ -32,18 +37,32 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import tempfile
 from collections import defaultdict
 from unittest import mock
 
+import numpy as np
 import torch
 
-from deformablelka_tpu_torch import train_path
+from deformablelka_tpu_torch import train_path, trainer2d_path
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d
+from deformablelka_tpu_torch.nn.lka2d import DeformConv
 from deformablelka_tpu_torch.ops import deform2d, deform3d, dwconv3d, kernels, lka
 from deformablelka_tpu_torch.ops.convs import to_ncdhw
 
 SCALE = 1 + 1e-7
 SMALL = (16, 32, 32)
+
+
+def _deform_dw_recomputed(x, offset, w, dil: int = 1):
+    """The plain 2D deform conv, its backward the VJP of the plain forward
+    recomputed call by call: the same values as autograd of the whole
+    forward, which would hold every site's gathers at once (~60 GB for a
+    flagship step at batch 24)."""
+    plain = lambda *t: deform2d.deform_dw_conv2d(*t, dil)
+    if not kernels._grad_needed(x, offset, w):
+        return plain(x, offset, w)
+    return kernels._PlainVjp.apply(plain, plain, x, offset, w)
 
 
 def plain_versions():
@@ -53,7 +72,7 @@ def plain_versions():
                                           deform3d.deform_conv3d))
     stack.enter_context(mock.patch.object(kernels, "dw_chain3d", lka.dw_chain3d))
     stack.enter_context(mock.patch.object(kernels, "deform_dw_conv2d",
-                                          deform2d.deform_dw_conv2d))
+                                          _deform_dw_recomputed))
     stack.enter_context(mock.patch.object(kernels, "dw_chain2d", lka.dw_chain2d))
     stack.enter_context(mock.patch.object(kernels, "dwconv3d",
                                           dwconv3d.depthwise_conv3d_dilated))
@@ -103,6 +122,32 @@ def one_step(seed, img_size, device, plain, scale=1.0, swap=False, kappa=False):
             "kappa": kap}
 
 
+def one_step_2d(seed, device, plain, scale=1.0, swap=False):
+    """Step 1 of the 2D flagship's trainer (model from `seed`, batch from
+    `seed`): loss, gradients, updates and the offset floors at each deform
+    site (all on the CPU)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = trainer2d_path.step_trainer(tmp, seed=seed, device=device)
+    batch = trainer2d_path.synthetic_batch(seed)
+    if swap:
+        batch = {k: v[::-1].copy() for k, v in batch.items()}
+    batch["image"] = batch["image"] * np.float32(scale)
+    floors = {}
+    hooks = [m.offset_net.register_forward_hook(_recorder(name, floors, None))
+             for name, m in trainer.model.named_modules() if isinstance(m, DeformConv)]
+    params = dict(trainer.model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    with plain_versions() if plain else contextlib.nullcontext():
+        loss = float(trainer.train_step(batch))
+    for h in hooks:
+        h.remove()
+    return {"loss": loss,
+            "grads": {n: p.grad.detach().cpu() for n, p in params.items()},
+            "upd": {n: (p.detach() - before[n]).cpu() for n, p in params.items()},
+            "floors": {n: f.flip(0) if swap else f for n, f in floors.items()},
+            "kappa": {}}
+
+
 def compare(run, ref) -> dict:
     """Per-tensor and whole relative differences of gradients and updates,
     and floor crossings by deform site."""
@@ -137,6 +182,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--small", action="store_true",
                     help="16x32x32 with the CPU as the reference (phase 6)")
+    ap.add_argument("--two_d", action="store_true",
+                    help="the 2D flagship's Trainer2D step, 224², batch 24 (phase 20)")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -144,15 +191,17 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     img, ref_dev = (SMALL, "cpu") if args.small else (train_path.PATCH, "cuda")
+    if args.two_d:
+        step = lambda seed, dev, plain, **kw: one_step_2d(seed, dev, plain, **kw)
+    else:
+        step = lambda seed, dev, plain, **kw: one_step(seed, img, dev, plain, **kw)
     ref_name = f"plain ({ref_dev})"
     largest = defaultdict(lambda: [0.0, 0.0])
     for seed in args.seeds:
-        ref = one_step(seed, img, ref_dev, plain=True, kappa=True)
-        runs = {f"{ref_name}, image x (1 + 1e-7)":
-                    one_step(seed, img, ref_dev, True, scale=SCALE),
-                f"{ref_name}, batch swapped":
-                    one_step(seed, img, ref_dev, True, swap=True),
-                "hand kernels (cuda)": one_step(seed, img, "cuda", plain=False)}
+        ref = step(seed, ref_dev, True, **({} if args.two_d else {"kappa": True}))
+        runs = {f"{ref_name}, image x (1 + 1e-7)": step(seed, ref_dev, True, scale=SCALE),
+                f"{ref_name}, batch swapped": step(seed, ref_dev, True, swap=True),
+                "hand kernels (cuda)": step(seed, "cuda", False)}
         for name, run in runs.items():
             c = compare(run, ref)
             report(seed, f"{name} vs {ref_name}", c, run["loss"], ref["loss"])
@@ -160,9 +209,10 @@ def main() -> None:
                 largest[name][i] = max(largest[name][i], c[key][1])
         g = ref["grads"]
         kap = sorted(ref["kappa"].items(), key=lambda kv: -kv[1])
-        print(f"seed {seed} κ of the conv_offset.weight gradients, largest first: "
-              + "; ".join(f"{n} {k:.3g} (‖g‖ {g[n].norm():.3e})" for n, k in kap[:4])
-              + f"; smallest {kap[-1][1]:.3g}")
+        if kap:
+            print(f"seed {seed} κ of the conv_offset.weight gradients, largest first: "
+                  + "; ".join(f"{n} {k:.3g} (‖g‖ {g[n].norm():.3e})" for n, k in kap[:4])
+                  + f"; smallest {kap[-1][1]:.3g}")
     for name, (gr, up) in largest.items():
         print(f"over seeds {args.seeds}, {name}: worst per-tensor gradient "
               f"{gr:.3e}, update {up:.3e}")

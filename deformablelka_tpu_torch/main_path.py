@@ -47,7 +47,8 @@ SIZE_AWARE = "TransformerBlock_Deform_LKA_Spatial_sequential"
 # decoder5)
 LAUNCHES_PER_FORWARD = {SIZE_AWARE: {"deform_conv3d": BLOCKS, "dw_chain3d": 12,
                                      "deform_conv3d_bwd": 0, "deform_dw_conv2d": 0,
-                                     "dw_chain2d": 0, "dwconv3d": 9}}
+                                     "deform_dw_conv2d_bwd": 0, "dw_chain2d": 0,
+                                     "dwconv3d": 9}}
 
 
 def drive_gates(model, seed: int) -> None:

@@ -14,7 +14,9 @@ its Δx, taps row-major over (kh, kw). Weights are in the JAX layout
 (kh, kw, 1, C).
 
 `deform_dw_conv2d` is the CPU path of `ops.kernels.deform_dw_conv2d` and
-the reference its CUDA kernel is held against on the card.
+the reference its CUDA kernel is held against on the card;
+`deform_dw_conv2d_backward`, its autograd, is the same for the backward
+kernel (`ops.kernels.deform_dw_conv2d_bwd`).
 """
 
 from __future__ import annotations
@@ -97,3 +99,14 @@ def deform_dw_conv2d(x, offset, w, dil: int = 1):
     (B, H, W, 2k²), w (k, k, 1, C) → (B, H, W, C)."""
     return deform_conv2d(x, offset, w, padding=(w.shape[0] // 2) * dil,
                          dilation=dil, groups=x.shape[-1])
+
+
+def deform_dw_conv2d_backward(x, offset, w, g, dil: int = 1):
+    """(dx, d-offset, dw) of `deform_dw_conv2d(x, offset, w, dil)` at the
+    cotangent g: `torch.autograd.grad` of the plain forward. floor has zero
+    derivative, so at an integer coordinate the offset gradient is the
+    right derivative x(y0 + 1) − x(y0), as in torchvision."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, offset, w)]
+        y = deform_dw_conv2d(*inputs, dil)
+        return torch.autograd.grad(y, inputs, g)

@@ -16,17 +16,19 @@ PyTorch version instead, which autograd differentiates; on a CUDA tensor it
 launches the kernel or raises, and never falls back. Where autograd will
 ask for a gradient (grad mode on and an input that requires one), a
 forward wrapper on a CUDA tensor is a `torch.autograd.Function`:
-`deform_conv3d`'s backward launches the backward kernel
-(`deform_conv3d_bwd`); those of `dw_chain3d`, `deform_dw_conv2d`,
-`dw_chain2d` and `dwconv3d` are the VJPs of their plain versions,
-recomputed. Otherwise the forward launches alone. Every launcher takes
-its pointers and its launch plan (`deform3d_plan`, `chain3d_plan`,
-`deform3d_bwd_plan`, `deform2d_dw_plan`, `chain2d_plan`, `dwconv3d_plan`:
-pure functions of the shape, cached) as two arrays: at the small shapes
-the host's time per call sets the pace. `wrapper.launches` counts each
-kernel's calls (the deform conv's second pass, which adds the parts of a
-split K, is part of its one call, as are the backward's weight GEMM and
-its sum of parts).
+`deform_conv3d`'s backward launches its backward kernel
+(`deform_conv3d_bwd`), and so does `deform_dw_conv2d`'s
+(`deform_dw_conv2d_bwd`); those of `dw_chain3d`, `dw_chain2d` and
+`dwconv3d` are the VJPs of their plain versions, recomputed. Otherwise
+the forward launches alone. Every launcher takes its pointers and its
+launch plan (`deform3d_plan`, `chain3d_plan`, `deform3d_bwd_plan`,
+`deform2d_dw_plan`, `deform2d_dw_bwd_plan`, `chain2d_plan`,
+`dwconv3d_plan`: pure functions of the shape, cached) as two arrays: at
+the small shapes the host's time per call sets the pace.
+`wrapper.launches` counts each kernel's calls (the deform conv's second
+pass, which adds the parts of a split K, is part of its one call, as are
+the backward's weight GEMM and its sum of parts, and the 2D backward's sum
+of dw's per-tile parts).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from pathlib import Path
 import torch
 
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform_dw_conv2d_plain
+from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d_backward
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_conv3d_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
 from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated as dwconv3d_plain
@@ -119,6 +122,7 @@ def library() -> ctypes.CDLL:
         lib.dlka_deform_conv3d.restype = i32
         lib.dlka_deform_conv3d_bwd.restype = i32
         lib.dlka_deform_dw_conv2d.restype = i32
+        lib.dlka_deform_dw_conv2d_bwd.restype = i32
         lib.dlka_dw_chain3d.restype = i32
         lib.dlka_dw_chain2d.restype = i32
         lib.dlka_dwconv3d.restype = i32
@@ -167,7 +171,7 @@ def _pointers() -> ctypes.Array:
     """This thread's array of the pointers a launcher takes."""
     buf = getattr(_launch_args, "buf", None)
     if buf is None:
-        buf = _launch_args.buf = (ctypes.c_uint64 * 10)()
+        buf = _launch_args.buf = (ctypes.c_uint64 * 10)()  # the most any launcher takes
     return buf
 
 
@@ -327,12 +331,10 @@ def _chain_forward(x, w_dw, b_dw, w_dil, b_dil):
 class _PlainVjp(torch.autograd.Function):
     """Forward: `kernel(*inputs)`. Backward: the VJP of `plain(*inputs)`,
     recomputed (cuDNN or PyTorch's own kernels on the card), as the JAX
-    package differentiates a plain form of its fused chains and of its 2D
-    deform kernel (`lka_fused_kernel.py` `_c3_bwd`/`_c2_bwd`,
-    `deform2d_kernel.py` `_bwd`): it has no backward kernel for them, and
-    the port's are later work (ROADMAP). For the 2D deform conv the plain
-    form is the gather, whose offset gradient at an integer offset is the
-    right derivative x(y0 + 1) − x(y0); the JAX window VJP gives 0 there."""
+    package differentiates a plain form of its fused chains
+    (`lka_fused_kernel.py` `_c3_bwd`/`_c2_bwd`): it has no backward kernel
+    for them, and the port's are later work (ROADMAP). The chains and the
+    dilated depthwise conv take it; the deform convs have backward kernels."""
 
     @staticmethod
     def forward(ctx, kernel, plain, *inputs):
@@ -366,7 +368,7 @@ def dw_chain3d(x, w_dw, b_dw, w_dil, b_dil):
 dw_chain3d.launches = 0
 
 
-def _deform_dw_forward(x, offset, w, dil):
+def _check_deform_dw(x, offset, w, dil):
     B, H, W, C = x.shape
     dev = x.device
     k = w.shape[0]
@@ -378,13 +380,18 @@ def _deform_dw_forward(x, offset, w, dil):
     _require(w, "w", (k, k, 1, C), dev)
     if B * H * W * max(C, 2 * k * k) >= 2 ** 31:
         raise ValueError("deform_dw_conv2d kernel: too many elements for int32 indices")
-    plan = deform2d_dw_plan(B, H, W, C, k, dil)
+
+
+def _deform_dw_forward(x, offset, w, dil):
+    _check_deform_dw(x, offset, w, dil)
+    B, H, W, C = x.shape
+    plan = deform2d_dw_plan(B, H, W, C, w.shape[0], dil)
     y = torch.empty_like(x)
     a = _pointers()
     a[0] = xp = x.data_ptr()
     a[1] = offset.data_ptr()
     a[2] = wp = w.data_ptr()
-    a[3], a[4] = y.data_ptr(), _stream(dev)
+    a[3], a[4] = y.data_ptr(), _stream(x.device)
     err = (_lib or library()).dlka_deform_dw_conv2d(
         a, plan.params, plan.vec if xp % 16 == 0 and wp % 16 == 0 else 1)
     if err:
@@ -393,24 +400,76 @@ def _deform_dw_forward(x, offset, w, dil):
     return y
 
 
+class _DeformDw2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, offset, w, dil):
+        ctx.save_for_backward(x, offset, w)
+        ctx.dil = dil
+        return _deform_dw_forward(x, offset, w, dil)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offset, w = ctx.saved_tensors
+        dx, doff, dw = deform_dw_conv2d_bwd(x, offset, w, g.contiguous(), ctx.dil)
+        return dx, doff, dw, None
+
+
 def deform_dw_conv2d(x, offset, w, dil: int = 1):
     """Depthwise k×k deformable conv, stride 1, dilation `dil`, padding
     (k // 2)·dil, one offset group, no bias; bilinear, zero outside the
     image, exact for any offset.
 
     x (B, H, W, C), offset (B, H, W, 2k²) with (Δy, Δx) per tap, taps
-    row-major, w (k, k, 1, C) → (B, H, W, C). Kernel: csrc/deform2d_dw.cu.
+    row-major, w (k, k, 1, C) → (B, H, W, C). Kernel: csrc/deform2d_dw.cu;
+    its gradient: `deform_dw_conv2d_bwd`.
     """
     if not x.is_cuda:
         return deform_dw_conv2d_plain(x, offset, w, dil)
     if not _grad_needed(x, offset, w):
         return _deform_dw_forward(x, offset, w, dil)
-    return _PlainVjp.apply(
-        lambda *t: _deform_dw_forward(*t, dil),
-        lambda *t: deform_dw_conv2d_plain(*t, dil), x, offset, w)
+    return _DeformDw2d.apply(x, offset, w, dil)
 
 
 deform_dw_conv2d.launches = 0
+
+
+def deform_dw_conv2d_bwd(x, offset, w, g, dil: int = 1):
+    """(dx, d-offset, dw) of `deform_dw_conv2d(x, offset, w, dil)` at the
+    cotangent g (B, H, W, C): the exact bilinear gradient, right derivative
+    at integer offsets. Kernel: csrc/deform2d_dw_bwd.cu (a data launch and
+    a fixed-order sum of dw's per-tile parts: one call). Its scratch: tiles
+    × k² × C floats."""
+    if not x.is_cuda:
+        return deform_dw_conv2d_backward(x, offset, w, g, dil)
+    _check_deform_dw(x, offset, w, dil)
+    B, H, W, C = x.shape
+    k = w.shape[0]
+    _require(g, "g", (B, H, W, C), x.device)
+    plan = deform2d_dw_bwd_plan(B, H, W, C, k, dil)
+    n_part = plan.grid[0] * k * k * C
+    if n_part >= 2 ** 31:
+        raise ValueError("deform_dw_conv2d_bwd kernel: too many tiles for its scratch")
+    dx = torch.zeros_like(x)
+    # several channel parts add into doff with atomics; one writes it
+    doff = torch.zeros_like(offset) if plan.parts > 1 else torch.empty_like(offset)
+    dw = torch.empty_like(w)
+    part = torch.empty(n_part, device=x.device, dtype=torch.float32)
+    a = _pointers()
+    a[0] = xp = x.data_ptr()
+    a[1] = offset.data_ptr()
+    a[2] = wp = w.data_ptr()
+    a[3] = gp = g.data_ptr()
+    a[4], a[5], a[6] = dx.data_ptr(), doff.data_ptr(), dw.data_ptr()
+    a[7], a[8] = part.data_ptr(), _stream(x.device)
+    vec = plan.vec if xp % 16 == 0 and wp % 16 == 0 and gp % 16 == 0 else 1
+    err = (_lib or library()).dlka_deform_dw_conv2d_bwd(a, plan.params, vec)
+    if err:
+        _check(err, "deform_dw_conv2d_bwd")
+    deform_dw_conv2d_bwd.launches += 1
+    return dx, doff, dw
+
+
+deform_dw_conv2d_bwd.launches = 0
 
 
 @dataclass(frozen=True)
@@ -559,6 +618,26 @@ def deform2d_dw_plan(B: int, H: int, W: int, C: int, k: int, dil: int) -> Launch
     return LaunchPlan(per_part, (th, tw), 4 if C % 4 == 0 else 1, smem,
                       (tiles, -(-C // per_part), 1), 256,
                       _c_ints(B, H, W, C, k, dil, th, tw, per_part, smem))
+
+
+@functools.lru_cache(maxsize=None)
+def deform2d_dw_bwd_plan(B: int, H: int, W: int, C: int, k: int, dil: int) -> LaunchPlan:
+    """deform_dw_conv2d_bwd's blocks: the forward's (`deform2d_dw_plan`:
+    the 32-pixel tile, the channel parts, the grid; `parts` the channel
+    parts, which add into doff with atomics where there are several). The
+    shared memory: the corner table (16 bytes per pixel and tap), a chunk's
+    tap weights, the tile's g for a chunk and its offset gradient (8 bytes
+    per pixel and tap)."""
+    fwd = deform2d_dw_plan(B, H, W, C, k, dil)
+    th, tw = fwd.tile
+    pixels = th * tw
+    smem = k * k * (pixels * 24 + _D2D_CHUNK * 4) + pixels * _D2D_CHUNK * 4
+    if smem > _SMEM_MAX:
+        raise ValueError(f"deform_dw_conv2d_bwd kernel: a {k}x{k} corner table does not "
+                         "fit shared memory")
+    return LaunchPlan(fwd.channel_tile, fwd.tile, fwd.vec, smem, fwd.grid, 256,
+                      _c_ints(B, H, W, C, k, dil, th, tw, fwd.channel_tile, smem),
+                      parts=fwd.grid[1])
 
 
 def _vec(ct: int, C: int) -> int:
@@ -829,7 +908,7 @@ def dwconv3d(x, w, bias, dil: int):
 dwconv3d.launches = 0
 
 WRAPPERS = (deform_conv3d, dw_chain3d, deform_conv3d_bwd, deform_dw_conv2d,
-            dw_chain2d, dwconv3d)
+            deform_dw_conv2d_bwd, dw_chain2d, dwconv3d)
 
 
 def reset_launches() -> None:

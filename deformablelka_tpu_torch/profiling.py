@@ -1,7 +1,8 @@
 """A device-time breakdown of one run on the card, shared by the main path,
 the training path and the 2D path: `torch.profiler` records the run, and its CUDA
 kernels are summed by name and by class (the hand kernels, cuDNN/cuBLAS,
-the rest).
+the rest); and `timed`, the host clock of each call of a function, which
+the trainers' recorders wrap around their pieces.
 """
 
 from __future__ import annotations
@@ -12,7 +13,19 @@ from collections import defaultdict
 import torch
 
 
+def timed(fn, times: list):
+    """`fn`, appending the host seconds of each call to `times`."""
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times.append(time.perf_counter() - t0)
+        return out
+    return wrapped
+
+
 def kernel_class(name: str) -> str:
+    if "deform_dw_bwd" in name:
+        return "deform_dw_conv2d_bwd (hand kernel)"
     if "deform_bwd" in name:
         return "deform_conv3d_bwd (hand kernel)"
     if "deform_conv3d_kernel" in name:

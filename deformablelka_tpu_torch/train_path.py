@@ -45,7 +45,7 @@ LR = poly_lr(0, 1000, 1e-2)
 # dilated depthwise conv, which the published block does not reach: none)
 LAUNCHES_PER_STEP = {"deform_conv3d": 2 * BLOCKS, "dw_chain3d": 2 * BLOCKS,
                      "deform_conv3d_bwd": BLOCKS, "deform_dw_conv2d": 0,
-                     "dw_chain2d": 0, "dwconv3d": 0}
+                     "deform_dw_conv2d_bwd": 0, "dw_chain2d": 0, "dwconv3d": 0}
 
 
 @dataclass

@@ -53,6 +53,7 @@ from deformablelka_tpu_torch.data.pancreas import PancreasDataLoader
 from deformablelka_tpu_torch.inference import pancreas
 from deformablelka_tpu_torch.main_path import BLOCKS
 from deformablelka_tpu_torch.ops import kernels
+from deformablelka_tpu_torch.profiling import timed
 from deformablelka_tpu_torch.training.checkpoint import CheckpointManager
 from deformablelka_tpu_torch.training.trainer3d import Trainer3D
 from deformablelka_tpu_torch.training.trainer_pancreas import TrainerPancreas
@@ -71,7 +72,8 @@ PANCREAS_LABELED = 1
 
 def _launches(deform, chain, bwd) -> dict:
     return {"deform_conv3d": deform, "dw_chain3d": chain, "deform_conv3d_bwd": bwd,
-            "deform_dw_conv2d": 0, "dw_chain2d": 0, "dwconv3d": 0}
+            "deform_dw_conv2d": 0, "deform_dw_conv2d_bwd": 0, "dw_chain2d": 0,
+            "dwconv3d": 0}
 
 
 # kernel launches of the published block's paths: a Synapse step with remat
@@ -143,15 +145,6 @@ def synchronous_batch(pre, patch=PATCH, seed: int = 1234) -> dict:
     return transform(loader.next())
 
 
-def _timed(fn, times: list):
-    def wrapped(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        times.append(time.perf_counter() - t0)
-        return out
-    return wrapped
-
-
 class Recorder:
     """Inside `with Recorder() as rec:` the host seconds of each call of
     the trainer's steps (`step`, ending with the loss on the host),
@@ -169,11 +162,11 @@ class Recorder:
         self._stack = contextlib.ExitStack()
 
     def _counted(self, fn, key: str):
-        timed, launches = _timed(fn, self.times[key]), self.launches[key]
+        call, launches = timed(fn, self.times[key]), self.launches[key]
 
         def wrapped(*args, **kwargs):
             kernels.reset_launches()
-            out = timed(*args, **kwargs)
+            out = call(*args, **kwargs)
             launches.append(kernels.launch_counts())
             return out
         return wrapped
@@ -183,18 +176,18 @@ class Recorder:
             loader, transform = make_pipeline(dataset, patch, batch_size, seed, train,
                                               *args, **kwargs)
             tag = "" if train else "_val"
-            timed_loader = SimpleNamespace(next=_timed(loader.next, self.times["load" + tag]))
-            return timed_loader, _timed(transform, self.times["augment" + tag])
+            timed_loader = SimpleNamespace(next=timed(loader.next, self.times["load" + tag]))
+            return timed_loader, timed(transform, self.times["augment" + tag])
         return wrapped
 
     def __enter__(self):
         for owner, name, new in (
                 (Trainer3D, "train_batch", self._counted(Trainer3D.train_batch, "step")),
                 (Trainer3D, "evaluate", self._counted(Trainer3D.evaluate, "val_batch")),
-                (Trainer3D, "run_epoch", _timed(Trainer3D.run_epoch, self.times["epoch"])),
-                (ThreadedAugmenter, "next", _timed(ThreadedAugmenter.next, self.times["wait"])),
+                (Trainer3D, "run_epoch", timed(Trainer3D.run_epoch, self.times["epoch"])),
+                (ThreadedAugmenter, "next", timed(ThreadedAugmenter.next, self.times["wait"])),
                 (CheckpointManager, "_write",
-                 _timed(CheckpointManager._write, self.times["checkpoint_write"])),
+                 timed(CheckpointManager._write, self.times["checkpoint_write"])),
                 (run_training, "make_pipeline", self._pipeline(run_training.make_pipeline))):
             self._stack.enter_context(mock.patch.object(owner, name, new))
         return self

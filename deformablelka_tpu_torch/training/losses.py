@@ -1,11 +1,12 @@
-"""The losses of the 3D training step, channels-last.
+"""The losses of the 3D and 2D training steps, channels-last.
 
 Port of the parts of `deformablelka_tpu/training/losses.py` that the
-Synapse trainer uses: nnUNet's soft Dice (batch dice, background dropped,
-smooth 1e-5) plus cross-entropy, the deep-supervision sum with weights
-1/2^i normalised over order-0 downsampled label maps, and the poly
-learning-rate schedule. Logits are (B, *S, C), labels (B, *S) integers;
-every loss is computed in float32.
+trainers use: nnUNet's soft Dice (batch dice, background dropped, smooth
+1e-5) plus cross-entropy, the deep-supervision sum with weights 1/2^i
+normalised over order-0 downsampled label maps, the poly learning-rate
+schedule, and the 2D trainer's 0.4·CE + 0.6·Dice (`dice_ce_2d_loss`).
+Logits are (B, *S, C), labels (B, *S) integers; every loss is computed
+in float32.
 """
 
 from __future__ import annotations
@@ -69,6 +70,23 @@ def dc_and_ce_loss(logits, labels, weight_ce=1.0, weight_dice=1.0,
         logits, labels, loss_mask)
     ce = cross_entropy(logits, labels, loss_mask)
     return weight_ce * ce + weight_dice * dice
+
+
+def dice_ce_2d_loss(logits, labels, ce_weight=0.4, dice_weight=0.6):
+    """The 2D trainer loss (trainer_MaxViT_deform_LKA.py:137-139):
+    0.4·CE + 0.6·(1 - mean one-hot soft dice). Per-batch dice with smooth
+    1e-5 including background (2D/utils.py:11-47): each class summed over
+    the whole batch, squared terms in the denominator."""
+    C = logits.shape[-1]
+    probs = softmax_helper(logits)
+    y = one_hot(labels, C)
+    axes = tuple(range(0, logits.ndim - 1))
+    inter = (probs * y).sum(axes)
+    psum = (probs * probs).sum(axes)
+    ysum = (y * y).sum(axes)
+    smooth = 1e-5
+    dice_loss = 1.0 - ((2 * inter + smooth) / (psum + ysum + smooth)).mean()
+    return ce_weight * cross_entropy(logits, labels) + dice_weight * dice_loss
 
 
 def deep_supervision_weights(n_outputs: int) -> np.ndarray:

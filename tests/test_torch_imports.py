@@ -39,9 +39,12 @@ def test_port_modules_are_listed():
                  "native", "data.dataset", "data.augment", "training.trainer3d",
                  "training.cascade", "training.trainer_pancreas",
                  "evaluation.evaluator", "evaluation.postprocessing",
-                 "cli.run_training", "cli.train_pancreas", "trainer_path"):
+                 "cli.run_training", "cli.train_pancreas", "trainer_path",
+                 "data.synapse2d", "data.skin", "evaluation.skin_eval",
+                 "training.trainer2d", "convert.backbone", "cli.train_synapse2d",
+                 "cli.test_synapse2d", "cli.train_skin", "trainer2d_path"):
         assert f"deformablelka_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 60
+    assert len(MODULES) >= 69
 
 
 @pytest.mark.parametrize("names", [MODULES, ["chip_smoke"]],

@@ -22,6 +22,7 @@ from deformablelka_tpu_torch.nn.lka2d import deformableLKABlock, LKABlock
 from deformablelka_tpu_torch.ops import kernels
 from deformablelka_tpu_torch.nn.transformer3d import TRANSFORMER_BLOCKS
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform2d_plain
+from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d_backward as deform2d_bwd_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
 from deformablelka_tpu_torch.ops.lka import dw_chain2d as chain2d_plain
@@ -311,6 +312,80 @@ def test_deform_dw_kernel_on_an_unaligned_input_takes_scalar_accesses(cuda):
     off = _offsets_2d((2, 9, 11, 50), cuda)
     w = torch.randn(5, 5, 1, C, device="cuda", generator=cuda) / 5
     _close(kernels.deform_dw_conv2d(x, off, w, 1), deform2d_plain(x, off, w, 1))
+
+
+def _deform_dw_bwd_inputs(gen, B, H, W, C, k, reach=2.5):
+    x = torch.randn(B, H, W, C, device="cuda", generator=gen)
+    off = _offsets_2d((B, H, W, 2 * k * k), gen, reach)
+    w = torch.randn(k, k, 1, C, device="cuda", generator=gen) / k
+    g = torch.randn(B, H, W, C, device="cuda", generator=gen)
+    return x, off, w, g
+
+
+@pytest.mark.parametrize("B,H,W,C,k,dil", [
+    (2, 14, 14, 384, 5, 1), (2, 14, 14, 384, 7, 3), (2, 28, 28, 192, 7, 3),
+    (2, 56, 56, 96, 5, 1), (1, 9, 13, 5, 5, 1), (2, 7, 5, 40, 7, 3),
+    (1, 10, 12, 33, 3, 2), (2, 3, 30, 36, 5, 1), (1, 37, 2, 6, 7, 3)])
+def test_deform_dw_backward_kernel_matches_plain(cuda, B, H, W, C, k, dil):
+    """The decoder's widths at batch 2 (14²×384 in channel parts, whose
+    offset gradients add with atomics); H and W that the tile does not
+    divide; C % 4 ≠ 0 (scalar accesses) and C not a multiple of the
+    32-channel chunk; offsets in ±2.5, a quarter of them exact integers
+    (the gather's right derivative), some corners outside the image."""
+    x, off, w, g = _deform_dw_bwd_inputs(cuda, B, H, W, C, k)
+    before = kernels.deform_dw_conv2d_bwd.launches
+    got = kernels.deform_dw_conv2d_bwd(x, off, w, g, dil)
+    assert kernels.deform_dw_conv2d_bwd.launches == before + 1
+    for a, r in zip(got, deform2d_bwd_plain(x, off, w, g, dil)):
+        _close(a, r)
+
+
+@pytest.mark.parametrize("reach", [0.05, 8.0])
+@pytest.mark.parametrize("B,H,W,C,k,dil", [(2, 14, 14, 384, 5, 1), (2, 56, 56, 96, 7, 3),
+                                           (1, 9, 13, 5, 5, 1)])
+def test_deform_dw_backward_kernel_at_small_and_large_offsets(cuda, reach, B, H, W, C, k,
+                                                              dil):
+    """|Δ| ≤ 0.05 (many samples adding into the same dx elements) and up
+    to 8 (most corners outside the image, their dx and offset terms
+    zero)."""
+    x, off, w, g = _deform_dw_bwd_inputs(cuda, B, H, W, C, k, reach)
+    for a, r in zip(kernels.deform_dw_conv2d_bwd(x, off, w, g, dil),
+                    deform2d_bwd_plain(x, off, w, g, dil)):
+        _close(a, r)
+
+
+def test_deform_dw_backward_kernel_on_unaligned_inputs_takes_scalar_accesses(cuda):
+    C = 8
+    x, off, w, g = _deform_dw_bwd_inputs(cuda, 2, 9, 11, C, 5)
+    buf = torch.randn(2 * 9 * 11 * C + 1, device="cuda", generator=cuda)
+    g = buf[1:].view(2, 9, 11, C)
+    assert g.data_ptr() % 16 != 0
+    for a, r in zip(kernels.deform_dw_conv2d_bwd(x, off, w, g, 1),
+                    deform2d_bwd_plain(x, off, w, g, 1)):
+        _close(a, r)
+
+
+@pytest.mark.parametrize("B,H,W,C,k,dil", [(4, 28, 28, 192, 7, 3), (2, 14, 14, 384, 5, 1)])
+def test_deform_dw_backward_kernel_weight_gradient_is_deterministic(cuda, B, H, W, C, k,
+                                                                    dil):
+    """dw is a fixed-order sum of per-tile parts: two calls give the same
+    bits."""
+    x, off, w, g = _deform_dw_bwd_inputs(cuda, B, H, W, C, k)
+    assert torch.equal(kernels.deform_dw_conv2d_bwd(x, off, w, g, dil)[2],
+                       kernels.deform_dw_conv2d_bwd(x, off, w, g, dil)[2])
+
+
+def test_deform_dw_conv2d_backward_launches_the_kernel(cuda):
+    """Autograd through `deform_dw_conv2d` on the card runs the backward
+    kernel, once, and gives the plain path's gradients."""
+    x, off, w, g = _deform_dw_bwd_inputs(cuda, 2, 14, 12, 32, 7)
+    leaves = [t.clone().requires_grad_() for t in (x, off, w)]
+    before = (kernels.deform_dw_conv2d.launches, kernels.deform_dw_conv2d_bwd.launches)
+    kernels.deform_dw_conv2d(*leaves, 3).backward(g)
+    assert (kernels.deform_dw_conv2d.launches,
+            kernels.deform_dw_conv2d_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for t, r in zip(leaves, deform2d_bwd_plain(x, off, w, g, 3)):
+        _close(t.grad, r)
 
 
 @pytest.mark.parametrize("B,H,W,C", [(24, 14, 14, 384), (24, 28, 28, 192),

@@ -8,11 +8,14 @@ and the 3D LKA chain at the four stage shapes, batch 8 for inference and 2
 for training; the deform conv's backward at the four stage shapes, batch
 2; the Pancreas model's four stage shapes at batch 2, as its trainer runs
 them, for both deform kernels and the chain; the three 2D decoder shapes
-at batch 24, the 2D deform conv at k5 and k7 dil 3 on each; 8³×128 K5 d3 and 4³×256 K3 d2 at batch 8) and at every
-shape of the `cuda` tests in
+at batch 24, the 2D deform conv and its backward at k5 and k7 dil 3 on
+each, the backward also at batch 16, the skin trainer's; 8³×128 K5 d3 and
+4³×256 K3 d2 at batch 8) and at every shape of the `cuda` tests in
 `tests/test_torch_kernels.py`. The dispatch runs with the plain version
 standing in for the kernel, as on the card: exact equality (atol 0), since
-both sides run the same plain code.
+both sides run the same plain code; so does the 2D deform conv's autograd
+Function, with the plain forward and backward standing in for its two
+kernels.
 """
 
 import math
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from deformablelka_tpu_torch.ops import kernels
+from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d, deform_dw_conv2d_backward
 from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated
 from deformablelka_tpu_torch.ops.lka import dw_chain2d
 
@@ -184,6 +188,74 @@ def test_deform2d_dw_plan(shape):
         assert math.prod(plan.grid) >= 3 * SMS
         assert 4 * (plan.smem_bytes + 1024) <= 233472  # four blocks per SM
         assert -(-H // th) * th == H and -(-W // tw) * tw == W  # no idle pixel
+
+
+D2D_BWD_SITES = D2D_SITES + [(16, S, S, C, k, dil) for _, S, _, C in CHAIN_SITES
+                             for k, dil in ((5, 1), (7, 3))]
+D2D_BWD_TESTS = [(2, 14, 14, 384, 5, 1), (2, 14, 14, 384, 7, 3), (2, 28, 28, 192, 7, 3),
+                 (2, 56, 56, 96, 5, 1), (2, 56, 56, 96, 7, 3), (1, 9, 13, 5, 5, 1),
+                 (2, 7, 5, 40, 7, 3), (1, 10, 12, 33, 3, 2), (2, 3, 30, 36, 5, 1),
+                 (1, 37, 2, 6, 7, 3), (2, 9, 11, 8, 5, 1), (4, 28, 28, 192, 7, 3),
+                 (2, 14, 12, 32, 7, 3)]
+
+
+@pytest.mark.parametrize("shape", D2D_BWD_SITES + D2D_BWD_TESTS,
+                         ids=_ids(D2D_BWD_SITES + D2D_BWD_TESTS))
+def test_deform2d_dw_bwd_plan(shape):
+    """The forward's tile, channel parts and grid; the shared memory of the
+    corner table, a chunk's weights and g, and the offset gradient."""
+    B, H, W, C, k, dil = shape
+    plan = kernels.deform2d_dw_bwd_plan(*shape)
+    fwd = kernels.deform2d_dw_plan(*shape)
+    assert (plan.tile, plan.channel_tile, plan.grid, plan.vec) == (
+        fwd.tile, fwd.channel_tile, fwd.grid, fwd.vec)
+    th, tw = plan.tile
+    assert plan.parts == plan.grid[1] and plan.threads == 256
+    assert plan.smem_bytes == k * k * (th * tw * 24 + 128) + th * tw * 128 <= SMEM_MAX
+    assert list(plan.params) == [B, H, W, C, k, dil, th, tw, plan.channel_tile,
+                                 plan.smem_bytes]
+    if shape in D2D_BWD_SITES:
+        assert plan.vec == 4 and 4 * (plan.smem_bytes + 1024) <= 233472  # four blocks per SM
+        # dw's per-tile parts fit int32 indices
+        assert plan.grid[0] * k * k * C < 2 ** 31
+        # channel parts (doff added with atomics) only where the tiles leave SMs idle
+        assert (plan.parts > 1) == (plan.grid[0] < 3 * SMS)
+
+
+def _deform_dw_inputs(seed=0, B=2, H=7, W=9, C=6, k=5):
+    rng = np.random.RandomState(seed)
+    off = rng.uniform(-2.5, 2.5, (B, H, W, 2 * k * k))
+    off = np.where(rng.rand(*off.shape) < 0.25, np.round(off), off)
+    return [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.randn(B, H, W, C), off, rng.randn(k, k, 1, C) / k, rng.randn(B, H, W, C))]
+
+
+@pytest.mark.parametrize("dil", [1, 3])
+def test_deform_dw_autograd_function_runs_the_backward_wrapper(monkeypatch, dil):
+    """`_DeformDw2d`: forward through `_deform_dw_forward`, backward through
+    `deform_dw_conv2d_bwd` with the saved inputs, g and the dilation; with
+    the plain versions standing in for the two kernels, autograd's
+    gradients exactly."""
+    calls = []
+    monkeypatch.setattr(kernels, "_deform_dw_forward",
+                        lambda *a: calls.append("fwd") or deform_dw_conv2d(*a))
+    monkeypatch.setattr(kernels, "deform_dw_conv2d_bwd",
+                        lambda *a: calls.append("bwd") or deform_dw_conv2d_backward(*a))
+    x, off, w, g = _deform_dw_inputs(seed=dil)
+    leaves = [t.clone().requires_grad_() for t in (x, off, w)]
+    kernels._DeformDw2d.apply(*leaves, dil).backward(g)
+    assert calls == ["fwd", "bwd"]
+    for t, r in zip(leaves, deform_dw_conv2d_backward(x, off, w, g, dil)):
+        torch.testing.assert_close(t.grad, r, rtol=0, atol=0)
+
+
+def test_deform_dw_backward_wrapper_on_cpu_tensors_is_plain():
+    before = kernels.deform_dw_conv2d_bwd.launches
+    x, off, w, g = _deform_dw_inputs(seed=4)
+    for a, r in zip(kernels.deform_dw_conv2d_bwd(x, off, w, g, 3),
+                    deform_dw_conv2d_backward(x, off, w, g, 3)):
+        assert torch.equal(a, r)
+    assert kernels.deform_dw_conv2d_bwd.launches == before
 
 
 @pytest.mark.parametrize("shape", CHAIN3D_SITES + CHAIN3D_TESTS,
