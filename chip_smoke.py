@@ -144,17 +144,24 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    `d_lka_former_iter_6` (189 / 189 launches, finite metrics);
 19. the 2D deform backward kernel against its plain version (autograd of
    the plain forward) at the six decoder sites (14²×384, 28²×192, 56²×96;
-   5×5 and 7×7-dil3), batch 24, offsets uniform in ±2.5 with a quarter of
-   them exact integers, TF32 off: max|err| of dx, d-offset and dw against
-   the stated tolerance, the kernel's (CUDA events, and device time), the
-   plain version's and the bound's times; a yardstick, cuDNN's depthwise
-   `conv2d_input` + `conv2d_weight` at Δ = 0 (not the same function; no
-   PyTorch call computes this backward, so no library time);
+   5×5 and 7×7-dil3), batch 24, offsets uniform in ±0.05, ±2.5 and ±8
+   with a quarter of them exact integers, TF32 off: max|err| of dx,
+   d-offset and dw against the stated tolerance at each scale, the
+   kernel's time at each (CUDA events), at ±2.5 also its device time, its
+   time with the L2 cache flushed before each call (as a training step
+   finds its inputs), the plain version's and the bound's times; at ±2.5 the two clocks of one
+   call side by side (events before and after, torch.profiler's kernels
+   the call issues: the zero fills, the data kernel, the sum of dw's
+   parts; the SM clock); a yardstick, cuDNN's depthwise `conv2d_input` +
+   `conv2d_weight` at Δ = 0 (not the same function; no PyTorch call
+   computes this backward, so no library time);
 20. the 2D flagship's training step (`Trainer2D`, `trainer2d_path.py`) at
    224², batch 24, 9 classes, from the CLI's seed, on one synthetic batch:
    3 steps (s/step, the median of steps 2-3; peak device memory; finite
    losses; exactly 12 deform forwards and 12 deform backwards per step,
    none of the others) and the backward kernel's device time in a fourth;
+   the backward kernel's 12 calls of a fifth step captured and timed alone
+   (CUDA events), with their offsets' statistics;
    then step 1 from the same weights through the plain versions: the loss
    within 1e-5 relative, each parameter tensor's update and the whole
    update within the 2D gates (over three times the noise floor printed
@@ -225,7 +232,7 @@ from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward as defor
 from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated as dw_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain2d as chain2d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
-from deformablelka_tpu_torch.profiling import device_profile
+from deformablelka_tpu_torch.profiling import cold_ms, device_profile
 from deformablelka_tpu_torch.training.losses import poly_lr
 from deformablelka_tpu_torch.training.train_step import make_sgd
 from deformablelka_tpu_torch.training.trainer3d import make_ds_train_step
@@ -704,10 +711,10 @@ def phase_train_path():
     return per_step, s_step
 
 
-def _offsets_2d(shape, g):
-    """Offsets uniform in ±2.5 on the card, a quarter of them exact
+def _offsets_2d(shape, g, reach=2.5):
+    """Offsets uniform in ±reach on the card, a quarter of them exact
     integers (0 among them)."""
-    off = (torch.rand(shape, device="cuda", generator=g) * 2 - 1) * 2.5
+    off = (torch.rand(shape, device="cuda", generator=g) * 2 - 1) * reach
     pick = torch.rand(shape, device="cuda", generator=g)
     return torch.where(pick < 0.25, off.round(), off)
 
@@ -1438,9 +1445,41 @@ def phase_pancreas_trainer():
     return {n: sum(c[n] for c in per_iteration) for n in per_iteration[0]}, rows
 
 
+# phase 19's offset scales: a trained checkpoint's (|Δ| ≤ 0.034, PERF.md
+# §7), the kernels' usual test scale, the driven gates' (|Δ| up to 5-8)
+BWD_2D_REACHES = (0.05, 2.5, 8.0)
+
+
+def _sm_clock() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def _bwd_2d_clocks(kernel, label):
+    """The two clocks of one wrapper call: CUDA events over 10 back-to-back
+    calls, then torch.profiler over 10 more (every kernel the call issues:
+    the zero fills of dx and d-offset, the data kernel, the sum of dw's
+    parts), then the events again; the SM clock before each."""
+    clock_a = _sm_clock()
+    ev_ms = timed_ms(kernel, 10)
+    clock_b = _sm_clock()
+    prof = device_profile(lambda: [kernel() for _ in range(10)])
+    ev_after = timed_ms(kernel, 10)
+    kernels_ms = {name: ms / 10 for name, ms in prof["by_name"].items()}
+    listing = ", ".join(f"{name[:60]} {ms:.4f}" for name, ms in
+                        sorted(kernels_ms.items(), key=lambda kv: -kv[1]))
+    print(f"phase 19 clocks {label}: CUDA events {ev_ms:.4f} ms a call (SM clock {clock_a}), "
+          f"again after the profiler {ev_after:.4f}; torch.profiler (SM clock {clock_b}): "
+          f"wall {prof['wall_ms'] / 10:.4f} ms a call, device busy "
+          f"{prof['device_busy_ms'] / 10:.4f}, kernels {sum(kernels_ms.values()):.4f} "
+          f"({listing})", flush=True)
+    return prof["by_class"]["deform_dw_conv2d_bwd (hand kernel)"] / 10
+
+
 def phase_2d_backward_kernel():
     """Phase 19: the 2D deform backward kernel against autograd of the
-    plain forward at the six decoder sites, batch 24."""
+    plain forward at the six decoder sites, batch 24, at three offset
+    scales (`BWD_2D_REACHES`); timed at each, the two clocks read at ±2.5."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2025)
     rows = []
@@ -1450,19 +1489,36 @@ def phase_2d_backward_kernel():
         gy = torch.randn(B, S, S, C, device=dev, generator=g)
         for k, dil in DEFORM_SITES:
             K = k * k
-            off = _offsets_2d((B, S, S, 2 * K), g)
             w = torch.randn(k, k, 1, C, device=dev, generator=g) / k
-            ref = deform2d_bwd_plain(x, off, w, gy, dil)
-            got = kernels.deform_dw_conv2d_bwd(x, off, w, gy, dil)
-            torch.cuda.synchronize()
-            report = {}
-            ok = all([_rel_close(n, a, r, report)
-                      for n, a, r in zip(("dx", "doff", "dw"), got, ref)])
-            del got, ref
-            kernel = lambda: kernels.deform_dw_conv2d_bwd(x, off, w, gy, dil)
-            ms = timed_ms(kernel, 10)
-            dms = device_ms(kernel, 10, "deform_dw_conv2d_bwd (hand kernel)")
-            pms = timed_ms(lambda: deform2d_bwd_plain(x, off, w, gy, dil), 2, warmup=1)
+            by_reach = {}
+            for reach in BWD_2D_REACHES:
+                off = _offsets_2d((B, S, S, 2 * K), g, reach)
+                ref = deform2d_bwd_plain(x, off, w, gy, dil)
+                got = kernels.deform_dw_conv2d_bwd(x, off, w, gy, dil)
+                torch.cuda.synchronize()
+                report = {}
+                ok = all([_rel_close(n, a, r, report)
+                          for n, a, r in zip(("dx", "doff", "dw"), got, ref)])
+                del got, ref
+                kernel = lambda: kernels.deform_dw_conv2d_bwd(x, off, w, gy, dil)
+                errs = ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in report.items())
+                if not ok:
+                    print(f"phase 19 deform_dw_conv2d_bwd B={B} {S}^2 C={C} k={k} dil={dil} "
+                          f"offsets in ±{reach}: max|err| {errs}", flush=True)
+                    fail(f"deform_dw_conv2d_bwd disagrees with its plain version at {S}^2 "
+                         f"C={C} k={k}, offsets in ±{reach}")
+                if reach != 2.5:
+                    by_reach[reach] = (timed_ms(kernel, 10), max(e for e, _ in report.values()),
+                                       errs)
+                    del off
+                    continue
+                label = f"B={B} {S}^2 C={C} k={k} dil={dil}"
+                dms = _bwd_2d_clocks(kernel, label)
+                ms = timed_ms(kernel, 10)
+                cms = cold_ms(kernel)
+                pms = timed_ms(lambda: deform2d_bwd_plain(x, off, w, gy, dil), 2, warmup=1)
+                err, errs_25 = max(e for e, _ in report.values()), errs
+                del off
             # yardstick: cuDNN's depthwise data and weight gradients at Δ = 0
             xn, gn = to_nchw(x).contiguous(), to_nchw(gy).contiguous()
             wn = w.permute(3, 2, 0, 1).contiguous()
@@ -1480,19 +1536,20 @@ def phase_2d_backward_kernel():
             flops = B * S * S * K * (32 * C + 24)
             bnd = bound_ms(n_bytes, flops)
             bms, by = _bound(bnd)
-            err = max(e for e, _ in report.values())
-            rows.append(dict(S=S, C=C, k=k, sites=2, err=err, ms=ms, plain_ms=pms, lib_ms=None,
-                             device_ms=dms, yardstick_ms=yms, **bnd))
-            errs = ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in report.items())
+            small_ms, small_err, small_errs = by_reach[0.05]
+            large_ms, large_err, large_errs = by_reach[8.0]
+            rows.append(dict(S=S, C=C, k=k, sites=2, err=max(err, small_err, large_err), ms=ms,
+                             plain_ms=pms, lib_ms=None, device_ms=dms, yardstick_ms=yms,
+                             small_offset_ms=small_ms, large_offset_ms=large_ms,
+                             cold_ms=cms, **bnd))
             print(f"phase 19 deform_dw_conv2d_bwd B={B} {S}^2 C={C} k={k} dil={dil}: max|err| "
-                  f"{errs}; kernel {ms:.4f} ms (device {dms:.4f}), plain {pms:.4f} ms, bound "
+                  f"{errs_25}; kernel {ms:.4f} ms (device {dms:.4f}; each call alone after the "
+                  f"L2 cache is flushed {cms:.4f}), plain {pms:.4f} ms, bound "
                   f"{bms:.4f} ms ({by}), library none (no PyTorch call computes this "
                   f"backward); yardstick, cuDNN's depthwise conv2d_input + conv2d_weight at "
-                  f"Δ = 0 {yms:.4f} ms", flush=True)
-            if not ok:
-                fail(f"deform_dw_conv2d_bwd disagrees with its plain version at {S}^2 C={C} "
-                     f"k={k}")
-            del off, w, xn, gn
+                  f"Δ = 0 {yms:.4f} ms; offsets in ±0.05 {small_ms:.4f} ms (max|err| "
+                  f"{small_errs}), in ±8 {large_ms:.4f} ms (max|err| {large_errs})", flush=True)
+            del w, xn, gn
         del x, gy
         torch.cuda.empty_cache()
     return rows
@@ -1548,6 +1605,36 @@ def _train_steps_2d(batch, config, steps=3):
     return times, losses, per_step, trainer, torch.cuda.max_memory_allocated()
 
 
+def _bwd_2d_on_step_inputs(trainer, batch) -> float:
+    """The 2D backward kernel on one training step's own inputs: each of the
+    step's 12 calls captured, then timed alone (CUDA events, 10 calls),
+    beside its offsets' statistics and whether it took 16-byte accesses.
+    Returns the sum over the calls, ms."""
+    real = kernels.deform_dw_conv2d_bwd
+    captured = []
+
+    def capture(x, offset, w, g, dil=1):
+        captured.append(tuple(t.detach().clone() for t in (x, offset, w, g)) + (dil,))
+        return real(x, offset, w, g, dil)
+
+    capture.launches = 0  # the wrapper counts its launch on the name it finds
+    with mock.patch.object(kernels, "deform_dw_conv2d_bwd", capture):
+        trainer.train_step(batch)
+    total = 0.0
+    for x, off, w, g, dil in captured:
+        ms = timed_ms(lambda: real(x, off, w, g, dil), 10)
+        total += ms
+        a = off.abs()
+        print(f"phase 20 deform_dw_conv2d_bwd on the step's inputs {tuple(x.shape)} k={w.shape[0]} "
+              f"dil={dil}: {ms:.4f} ms; |Δ| max {a.max().item():.3f}, mean "
+              f"{a.mean().item():.4f}, ≤ 0.05 {(a <= 0.05).float().mean().item():.3f}, integer "
+              f"{(off == off.round()).float().mean().item():.3f}; 16-byte aligned "
+              f"{all(t.data_ptr() % 16 == 0 for t in (x, g))}", flush=True)
+    del captured
+    torch.cuda.empty_cache()
+    return total
+
+
 def phase_2d_train_step():
     """Phase 20: the flagship's Trainer2D step at full size, step 1 against
     the plain versions and the noise floor, one step through `_PlainVjp`."""
@@ -1555,6 +1642,7 @@ def phase_2d_train_step():
     times, losses, per_step, trainer, peak = _train_steps_2d(batch, "dlka")
     bwd_device_ms = device_profile(lambda: trainer.train_step(batch))["by_class"][
         "deform_dw_conv2d_bwd (hand kernel)"]
+    bwd_inputs_ms = _bwd_2d_on_step_inputs(trainer, batch)
     del trainer
     torch.cuda.empty_cache()
     s_step = float(np.median(times[1:]))
@@ -1563,7 +1651,8 @@ def phase_2d_train_step():
           f"(median of steps 2-3; steps {_seconds(times)} s), peak device memory "
           f"{peak / 2**30:.3f} GiB; losses {[round(l, 6) for l in losses]}; launches per "
           f"step {per_step[0]}; deform_dw_conv2d_bwd {bwd_device_ms:.3f} device-ms per step "
-          "(a fourth step under torch.profiler)", flush=True)
+          f"(a fourth step under torch.profiler), {bwd_inputs_ms:.3f} ms on a fifth step's "
+          "inputs, each call timed alone", flush=True)
     if any(c != trainer2d_path.LAUNCHES_PER_STEP["dlka"] for c in per_step):
         fail(f"2D training step launches {per_step}, expected "
              f"{trainer2d_path.LAUNCHES_PER_STEP['dlka']}")
@@ -1777,7 +1866,8 @@ def kernel_line(rows, launches):
         for key, row_key in (("device_ms", "device_ms"),
                              ("library_device_ms", "lib_device_ms")):
             out[-1][key] = per_call(row_key) if row_key in rs[0] else None
-        for key in ("small_offset_ms", "dense_conv_ms", "tc_bound_ms", "yardstick_ms"):
+        for key in ("small_offset_ms", "large_offset_ms", "cold_ms", "dense_conv_ms",
+                    "tc_bound_ms", "yardstick_ms"):
             if key in rs[0]:
                 out[-1][key] = per_call(key)
     return {"kernels": out}

@@ -449,19 +449,19 @@ def deform_dw_conv2d_bwd(x, offset, w, g, dil: int = 1):
     n_part = plan.grid[0] * k * k * C
     if n_part >= 2 ** 31:
         raise ValueError("deform_dw_conv2d_bwd kernel: too many tiles for its scratch")
+    # the kernel adds into dx, and writes doff only where a sample has a
+    # corner inside the image
     dx = torch.zeros_like(x)
-    # several channel parts add into doff with atomics; one writes it
-    doff = torch.zeros_like(offset) if plan.parts > 1 else torch.empty_like(offset)
+    doff = torch.zeros_like(offset)
     dw = torch.empty_like(w)
     part = torch.empty(n_part, device=x.device, dtype=torch.float32)
     a = _pointers()
     a[0] = xp = x.data_ptr()
-    a[1] = offset.data_ptr()
-    a[2] = wp = w.data_ptr()
+    a[1], a[2] = offset.data_ptr(), w.data_ptr()
     a[3] = gp = g.data_ptr()
     a[4], a[5], a[6] = dx.data_ptr(), doff.data_ptr(), dw.data_ptr()
     a[7], a[8] = part.data_ptr(), _stream(x.device)
-    vec = plan.vec if xp % 16 == 0 and wp % 16 == 0 and gp % 16 == 0 else 1
+    vec = plan.vec if xp % 16 == 0 and gp % 16 == 0 else 1
     err = (_lib or library()).dlka_deform_dw_conv2d_bwd(a, plan.params, vec)
     if err:
         _check(err, "deform_dw_conv2d_bwd")
@@ -487,7 +487,8 @@ class LaunchPlan:
     grid: tuple
     threads: int
     params: ctypes.Array = field(compare=False, repr=False)
-    parts: int = 1   # deform3d: the K split over taps; chain3d: the runs of a z phase
+    parts: int = 1   # deform3d: the K split over taps; chain3d: the runs of a z phase;
+                     # deform2d_dw_bwd: its channel chunks
 
 
 _SMS = 132                   # H100 SXM streaming multiprocessors
@@ -620,24 +621,79 @@ def deform2d_dw_plan(B: int, H: int, W: int, C: int, k: int, dil: int) -> Launch
                       _c_ints(B, H, W, C, k, dil, th, tw, per_part, smem))
 
 
+# csrc/deform2d_dw_bwd.cu: channels a lane's quads cover (32 a quad),
+# items a warp step, threads a block, registers a thread of its data kernel
+# (nvcc -Xptxas -v, sm_90a)
+_D2D_BWD_QUAD, _D2D_BWD_MAX_QUADS, _D2D_BWD_SLOTS, _D2D_BWD_THREADS = 32, 3, 4, 768
+_D2D_BWD_REGS = 80
+
+
+def deform2d_dw_bwd_smem_bytes(th: int, tw: int, k: int, splits: int, nq: int) -> int:
+    """csrc/deform2d_dw_bwd.cu's shared memory for blocks of 32·nq channels:
+    the chunk's tap weights, the tile's g, the warps' dw parts (one a
+    split, tap and channel), the warps' corner tables for one tap (16 bytes
+    an item slot), the tile's offsets and its pixels' indices and
+    coordinates."""
+    K, TP, CH = k * k, th * tw, _D2D_BWD_QUAD * nq
+    slots = -(-TP // (_D2D_BWD_SLOTS * splits)) * _D2D_BWD_SLOTS
+    return 4 * (CH * K * (1 + splits) + (CH + 2 * K + 2) * TP + 4 * k * splits * slots)
+
+
 @functools.lru_cache(maxsize=None)
 def deform2d_dw_bwd_plan(B: int, H: int, W: int, C: int, k: int, dil: int) -> LaunchPlan:
-    """deform_dw_conv2d_bwd's blocks: the forward's (`deform2d_dw_plan`:
-    the 32-pixel tile, the channel parts, the grid; `parts` the channel
-    parts, which add into doff with atomics where there are several). The
-    shared memory: the corner table (16 bytes per pixel and tap), a chunk's
-    tap weights, the tile's g for a chunk and its offset gradient (8 bytes
-    per pixel and tap)."""
-    fwd = deform2d_dw_plan(B, H, W, C, k, dil)
-    th, tw = fwd.tile
-    pixels = th * tw
-    smem = k * k * (pixels * 24 + _D2D_CHUNK * 4) + pixels * _D2D_CHUNK * 4
-    if smem > _SMEM_MAX:
-        raise ValueError(f"deform_dw_conv2d_bwd kernel: a {k}x{k} corner table does not "
-                         "fit shared memory")
-    return LaunchPlan(fwd.channel_tile, fwd.tile, fwd.vec, smem, fwd.grid, 256,
-                      _c_ints(B, H, W, C, k, dil, th, tw, fwd.channel_tile, smem),
-                      parts=fwd.grid[1])
+    """deform_dw_conv2d_bwd's blocks: a tile (`tile` = (rows, columns)) of
+    8 … 64 pixels of one image (no side longer than the image's) × one
+    chunk of 32·nq channels (`channel_tile`; nq = ⌈C / 32⌉ up to 3 channel
+    quads a lane; `parts` chunks, which add into doff with atomics where
+    there are several); `splits` warps a tap row, each over ⌈th·tw /
+    splits⌉ pixels (the most up to 768 threads, at least 16 pixels a
+    warp). The tile: among those that keep 16 warps on an SM, else the most
+    warps, the one with the least work (the dx additions of its warps' item
+    slots, idle ones included, and the x its samples reach within ±2 of
+    their taps, through L1), then the most pixels, then the squarest.
+    16-byte accesses along C where C % 4 = 0."""
+    if k % 2 == 0 or dil < 1 or 32 * k > _D2D_BWD_THREADS:
+        raise ValueError(f"deform_dw_conv2d_bwd kernel: odd k ≤ {_D2D_BWD_THREADS // 32} "
+                         f"and dil >= 1 only, got k {k}, dil {dil}")
+    if max(H, W) >= 16384 or H * W * C >= 2 ** 31:
+        raise ValueError("deform_dw_conv2d_bwd kernel: H and W below 16384 and an image "
+                         "of fewer than 2^31 elements only")
+    K, reach = k * k, 2 * ((k // 2) * dil + 2) + 1
+    nq = min(_D2D_BWD_MAX_QUADS, -(-C // _D2D_BWD_QUAD))
+
+    def splits(th, tw):
+        return max(s for s in range(1, th * tw // 16 + 2)
+                   if 32 * k * s <= _D2D_BWD_THREADS and (s == 1 or th * tw // s >= 16))
+
+    def smem(th, tw):
+        return deform2d_dw_bwd_smem_bytes(th, tw, k, splits(th, tw), nq)
+
+    def warps_per_sm(th, tw):
+        threads = 32 * k * splits(th, tw)
+        return min(2048 // threads, 65536 // (_D2D_BWD_REGS * threads),
+                   (_SMEM_MAX + 1024) // (smem(th, tw) + 1024)) * threads // 32
+
+    def cost(tile):
+        th, tw = tile
+        sp = splits(th, tw)
+        slots = sp * -(-(-(-th * tw // sp)) // _D2D_BWD_SLOTS) * _D2D_BWD_SLOTS
+        return (-min(16, warps_per_sm(th, tw)),
+                B * -(-H // th) * -(-W // tw) * (3 * K * slots + (th + reach) * (tw + reach)),
+                -th * tw, abs(th - tw))
+
+    tiles = [(th, tw) for tw in range(1, min(W, 64) + 1) for th in range(1, min(H, 64 // tw) + 1)
+             if th * tw >= min(8, H * W) and smem(th, tw) <= _SMEM_MAX]
+    if not tiles:
+        raise ValueError(f"deform_dw_conv2d_bwd kernel: a {k}x{k} tile does not fit "
+                         "shared memory")
+    th, tw = min(tiles, key=cost)
+    sp = splits(th, tw)
+    CH = _D2D_BWD_QUAD * nq
+    chunks = -(-C // CH)
+    return LaunchPlan(CH, (th, tw), 4 if C % 4 == 0 else 1, smem(th, tw),
+                      (B * -(-H // th) * -(-W // tw), chunks, 1), 32 * k * sp,
+                      _c_ints(B, H, W, C, k, dil, th, tw, sp, nq, smem(th, tw)),
+                      parts=chunks)
 
 
 def _vec(ct: int, C: int) -> int:

@@ -1,8 +1,9 @@
 """A device-time breakdown of one run on the card, shared by the main path,
 the training path and the 2D path: `torch.profiler` records the run, and its CUDA
 kernels are summed by name and by class (the hand kernels, cuDNN/cuBLAS,
-the rest); and `timed`, the host clock of each call of a function, which
-the trainers' recorders wrap around their pieces.
+the rest); `timed`, the host clock of each call of a function, which
+the trainers' recorders wrap around their pieces; and `cold_ms`, a call's
+time on the card with the L2 cache flushed before it.
 """
 
 from __future__ import annotations
@@ -46,6 +47,31 @@ def kernel_class(name: str) -> str:
 
 
 PROFILE_ATTEMPTS = 3
+_FLUSH_FLOATS = 32 << 20   # 128 MB written before a cold call: the H100's L2 holds 50 MB
+_flush = None
+
+
+def cold_ms(fn, reps: int = 10) -> float:
+    """Per call, the median over `reps` calls of `fn`, each timed alone with
+    CUDA events after 128 MB are written on the card (the L2 cache
+    flushed, as a training step finds a kernel's inputs), after one
+    warm-up call."""
+    global _flush
+    if _flush is None:
+        _flush = torch.empty(_FLUSH_FLOATS, device="cuda")
+    fn()
+    marks = []
+    for _ in range(reps):
+        _flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return float(sorted(s.elapsed_time(e) for s, e in marks)[reps // 2])
+
 
 
 def device_profile(run) -> dict:
@@ -54,7 +80,8 @@ def device_profile(run) -> dict:
     by kernel class and by kernel. The profiler now and then records no
     device activity for a run of a few short kernels; the run is then
     profiled again, up to `PROFILE_ATTEMPTS` times in all, and an error
-    raised if none recorded any."""
+    raised if none recorded any. `by_name`: device ms by kernel name, the
+    whole run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -84,7 +111,7 @@ def device_profile(run) -> dict:
         by_class[kernel_class(name)] += ms
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "kernel_ms": sum(by_name.values()), "n_kernels": len(spans),
-            "by_class": dict(by_class),
+            "by_class": dict(by_class), "by_name": dict(by_name),
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:15]}
 
 

@@ -9,7 +9,10 @@ float32.
   at non-integer offsets and at integer ones, where both take the right
   derivative x(y0 + 1) − x(y0): tolerance 1e-5·max(1, max|JAX|).
 - The TPU kernel itself, `deform_dw_conv2d_pallas` in interpret mode, at
-  |Δ| ≤ R, where its clipped window is exact.
+  |Δ| ≤ R, where its clipped window is exact; and the plain backward (what
+  the backward kernel is held against on the card) against `jax.grad` of
+  it, whose VJP is the window's (`_window2d_core_bwd`), at offsets at
+  least 0.1 from any integer: tolerance 1e-5·max(1, max|JAX|).
 - The chain against JAX's `dw_chain2d` and the fused TPU kernel
   `dw_chain2d_fused` in interpret mode; its gradients against `jax.grad`.
 """
@@ -87,6 +90,21 @@ def test_plain_deform_matches_the_tpu_kernel_within_its_window(k, dil):
     ref = deform_dw_conv2d_pallas(*map(jnp.asarray, (x, off, w)), R, dil, True)
     got = deform2d.deform_dw_conv2d(*map(torch.from_numpy, (x, off, w)), dil)
     _close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("k,dil", SITES)
+def test_plain_deform_gradients_match_the_tpu_kernels_vjp(k, dil):
+    """Away from integers, where the window VJP's derivative (0 at an
+    integer) and the gather's right derivative agree, with |Δ| ≤ R."""
+    R = 1
+    x, off, w = _case(k, seed=13, B=1, H=8, W=8, C=16, span=R, integer=False)
+    assert np.abs(off).max() <= R and np.abs(off - np.round(off)).min() >= 0.1 - 1e-6
+    g = np.random.RandomState(14).randn(*x.shape).astype(np.float32)
+    ref = jax.grad(lambda *a: jnp.sum(deform_dw_conv2d_pallas(*a, R, dil, True) * g),
+                   argnums=(0, 1, 2))(*map(jnp.asarray, (x, off, w)))
+    got = deform2d.deform_dw_conv2d_backward(*map(torch.from_numpy, (x, off, w, g)), dil)
+    for gt, r in zip(got, ref):
+        _close(gt.numpy(), r)
 
 
 def test_plain_deform_raises_on_what_is_not_ported():

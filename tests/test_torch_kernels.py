@@ -325,13 +325,18 @@ def _deform_dw_bwd_inputs(gen, B, H, W, C, k, reach=2.5):
 @pytest.mark.parametrize("B,H,W,C,k,dil", [
     (2, 14, 14, 384, 5, 1), (2, 14, 14, 384, 7, 3), (2, 28, 28, 192, 7, 3),
     (2, 56, 56, 96, 5, 1), (1, 9, 13, 5, 5, 1), (2, 7, 5, 40, 7, 3),
-    (1, 10, 12, 33, 3, 2), (2, 3, 30, 36, 5, 1), (1, 37, 2, 6, 7, 3)])
+    (1, 10, 12, 33, 3, 2), (2, 3, 30, 36, 5, 1), (1, 37, 2, 6, 7, 3),
+    (2, 19, 23, 20, 7, 3), (3, 17, 29, 8, 5, 1)]
+    + [(B, S, S, C, k, dil) for B in (24, 16) for S, C in ((14, 384), (28, 192), (56, 96))
+       for k, dil in ((5, 1), (7, 3))])
 def test_deform_dw_backward_kernel_matches_plain(cuda, B, H, W, C, k, dil):
-    """The decoder's widths at batch 2 (14²×384 in channel parts, whose
-    offset gradients add with atomics); H and W that the tile does not
-    divide; C % 4 ≠ 0 (scalar accesses) and C not a multiple of the
-    32-channel chunk; offsets in ±2.5, a quarter of them exact integers
-    (the gather's right derivative), some corners outside the image."""
+    """The decoder's widths at batch 2 and at the flagship's and the skin
+    trainer's full batches (24, 16); channel chunks whose offset gradients
+    add with atomics (C = 192, 384); H and W that the tile does not divide,
+    so that tiles on each image edge hang over it (19×23, 17×29: several
+    tiles a side); C % 4 ≠ 0 (scalar accesses) and C not a multiple of 32;
+    offsets in ±2.5, a quarter of them exact integers (the gather's right
+    derivative), some corners outside the image."""
     x, off, w, g = _deform_dw_bwd_inputs(cuda, B, H, W, C, k)
     before = kernels.deform_dw_conv2d_bwd.launches
     got = kernels.deform_dw_conv2d_bwd(x, off, w, g, dil)
@@ -340,15 +345,38 @@ def test_deform_dw_backward_kernel_matches_plain(cuda, B, H, W, C, k, dil):
         _close(a, r)
 
 
-@pytest.mark.parametrize("reach", [0.05, 8.0])
+def _fixed_offsets(shape, gen, reach):
+    """Offsets of both signs whose size is fixed by `reach`: "small" in
+    ±0.15 and none an integer (a training step's, at initialisation),
+    "below" just below an integer (−1.99 or 2.99), "above" just above one
+    (−2.01 or 3.01), "far" ±30 and a fraction (every sample far from its tap: most
+    corners outside the image, the rest of the image's rows and columns
+    far from the block's tile)."""
+    sign = torch.rand(shape, device="cuda", generator=gen) < 0.5
+    if reach == "small":
+        return (torch.rand(shape, device="cuda", generator=gen) * 2 - 1) * 0.15
+    if reach == "far":
+        size = 30 + torch.rand(shape, device="cuda", generator=gen)
+        return torch.where(sign, size, -size)
+    lo, hi = {"below": (-1.99, 2.99), "above": (-2.01, 3.01)}[reach]
+    return torch.where(sign, torch.full(shape, hi, device="cuda"),
+                       torch.full(shape, lo, device="cuda"))
+
+
+@pytest.mark.parametrize("reach", [0.05, 8.0, "small", "below", "above", "far"])
 @pytest.mark.parametrize("B,H,W,C,k,dil", [(2, 14, 14, 384, 5, 1), (2, 56, 56, 96, 7, 3),
                                            (1, 9, 13, 5, 5, 1)])
 def test_deform_dw_backward_kernel_at_small_and_large_offsets(cuda, reach, B, H, W, C, k,
                                                               dil):
     """|Δ| ≤ 0.05 (many samples adding into the same dx elements) and up
     to 8 (most corners outside the image, their dx and offset terms
-    zero)."""
-    x, off, w, g = _deform_dw_bwd_inputs(cuda, B, H, W, C, k, reach)
+    zero); small offsets none of which is an integer (every corner adds);
+    offsets of fixed size just below and just above an integer; offsets
+    that take every sample far from its tap."""
+    x, off, w, g = _deform_dw_bwd_inputs(cuda, B, H, W, C, k,
+                                         reach if isinstance(reach, float) else 2.5)
+    if isinstance(reach, str):
+        off = _fixed_offsets(off.shape, cuda, reach)
     for a, r in zip(kernels.deform_dw_conv2d_bwd(x, off, w, g, dil),
                     deform2d_bwd_plain(x, off, w, g, dil)):
         _close(a, r)
@@ -369,7 +397,7 @@ def test_deform_dw_backward_kernel_on_unaligned_inputs_takes_scalar_accesses(cud
 def test_deform_dw_backward_kernel_weight_gradient_is_deterministic(cuda, B, H, W, C, k,
                                                                     dil):
     """dw is a fixed-order sum of per-tile parts: two calls give the same
-    bits."""
+    bits (dx and doff take atomics in the order the blocks run)."""
     x, off, w, g = _deform_dw_bwd_inputs(cuda, B, H, W, C, k)
     assert torch.equal(kernels.deform_dw_conv2d_bwd(x, off, w, g, dil)[2],
                        kernels.deform_dw_conv2d_bwd(x, off, w, g, dil)[2])

@@ -202,24 +202,32 @@ D2D_BWD_TESTS = [(2, 14, 14, 384, 5, 1), (2, 14, 14, 384, 7, 3), (2, 28, 28, 192
 @pytest.mark.parametrize("shape", D2D_BWD_SITES + D2D_BWD_TESTS,
                          ids=_ids(D2D_BWD_SITES + D2D_BWD_TESTS))
 def test_deform2d_dw_bwd_plan(shape):
-    """The forward's tile, channel parts and grid; the shared memory of the
-    corner table, a chunk's weights and g, and the offset gradient."""
+    """The block's shared memory fits at every site and test shape; the
+    grid covers the image (tiles of 8 … 64 pixels, no side past the
+    image's) and the channels (chunks of 32·nq, nq = ⌈C / 32⌉ up to 3); k
+    warps a tap row times the splits, up to 768 threads."""
     B, H, W, C, k, dil = shape
     plan = kernels.deform2d_dw_bwd_plan(*shape)
-    fwd = kernels.deform2d_dw_plan(*shape)
-    assert (plan.tile, plan.channel_tile, plan.grid, plan.vec) == (
-        fwd.tile, fwd.channel_tile, fwd.grid, fwd.vec)
     th, tw = plan.tile
-    assert plan.parts == plan.grid[1] and plan.threads == 256
-    assert plan.smem_bytes == k * k * (th * tw * 24 + 128) + th * tw * 128 <= SMEM_MAX
-    assert list(plan.params) == [B, H, W, C, k, dil, th, tw, plan.channel_tile,
-                                 plan.smem_bytes]
+    splits, nq, smem = list(plan.params)[8:]
+    assert list(plan.params)[:8] == [B, H, W, C, k, dil, th, tw]
+    assert plan.smem_bytes == smem == kernels.deform2d_dw_bwd_smem_bytes(
+        th, tw, k, splits, nq) <= SMEM_MAX
+    assert 1 <= th <= H and 1 <= tw <= W and min(8, H * W) <= th * tw <= 64
+    assert plan.grid == (B * -(-H // th) * -(-W // tw), -(-C // (32 * nq)), 1)
+    assert nq == min(3, -(-C // 32)) and plan.channel_tile == 32 * nq
+    assert (plan.grid[1] - 1) * plan.channel_tile < C <= plan.grid[1] * plan.channel_tile
+    assert plan.parts == plan.grid[1]
+    assert plan.threads == 32 * k * splits <= 768 and (splits == 1 or th * tw // splits >= 16)
+    assert plan.vec == (4 if C % 4 == 0 else 1)
     if shape in D2D_BWD_SITES:
-        assert plan.vec == 4 and 4 * (plan.smem_bytes + 1024) <= 233472  # four blocks per SM
+        assert plan.vec == 4 and nq == 3
         # dw's per-tile parts fit int32 indices
         assert plan.grid[0] * k * k * C < 2 ** 31
-        # channel parts (doff added with atomics) only where the tiles leave SMs idle
-        assert (plan.parts > 1) == (plan.grid[0] < 3 * SMS)
+        # at least 16 warps on an SM (80 registers a thread, the data kernel's)
+        blocks = min(2048 // plan.threads, 65536 // (80 * plan.threads),
+                     (SMEM_MAX + 1024) // (plan.smem_bytes + 1024))
+        assert blocks * plan.threads // 32 >= 16
 
 
 def _deform_dw_inputs(seed=0, B=2, H=7, W=9, C=6, k=5):
