@@ -69,6 +69,8 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    turns) and as device time under torch.profiler; the deform conv as
    CUDA events and device time, beside a yardstick, the depthwise
    `F.conv2d(groups=C, dilation=dil)` at Δ = 0 (not the same function);
+   then the chain alike at DAE-LKA's decoder shapes, 28²×320 and
+   56²×128, batch 24;
 9. the 2D path (`main_path2d.py`): `Predictor2D.predict_volume` of a
    seeded 40×512×512 case (224² patch, one chunk of 24 and a padded one
    of 16) for the flagship and the LKA Baseline at full width from seed
@@ -171,7 +173,7 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    kernel replaced), timed;
 21. the 2D CLIs (`trainer2d_path.py`): `train_synapse2d.main` on 48
    synthetic 512² slices (B=24, 2 epochs of 2 batches, the eval hook at
-   epoch 2 on two 40×512×512 volumes held in memory): s/step, host
+   epoch 2 on one 40×512×512 volume held in memory): s/step, host
    seconds of loading and augmenting a batch, s/epoch, checkpoint writes,
    peak device memory, 12 / 12 launches per step, the hook's Dice finite
    in [0, 1], `best_model` written; the test CLI's volume function on
@@ -182,7 +184,30 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    and step 1 against the plain versions (loss within 1e-5); then
    `train_skin.main` (224² RGB, one class, B=16, 2 epochs, test
    evaluation): s/step, the plateau scale, the best-validation
-   checkpoint and finite skin metrics.
+   checkpoint and finite skin metrics; then `--model`:
+   `train_synapse2d --model dae_lka` (1 epoch of 2 batches, 4 chain
+   launches per step), the test CLI's volume function on its
+   `best_model` (4 per forward; labels ≥ 0.999 equal to the plain
+   chain's) and `train_skin --model transunet --evaluate` (1 epoch of 2
+   batches, no hand kernel);
+22. the 2D ablation zoo (`main_path2d.ZOO`, the 11 registry models but
+   the flagship's two), each: at narrow widths (`ZOO_NARROW`, 224², B=2)
+   the card against the CPU (the path the CPU tests hold against the JAX
+   package), max|Δ| within 1e-3·max(1, max|CPU|), TF32 off; at upstream
+   widths from seed 0 (gates driven), 224², B=24: ms per forward (the
+   median of 5 after a warm call), peak device memory, launches per
+   forward (`main_path2d.LAUNCHES_PER_FORWARD`: 4 chains for dae_lka, 6
+   for mvit_lka, dat_lka, stvit_lka, none for the others); for those
+   four the labels ≥ 0.999 equal to the same forward through the plain
+   chain; 3 `Trainer2D` steps (s/step, the median of steps 2-3; peak
+   memory; finite losses; `trainer2d_path.LAUNCHES_PER_STEP`); for the
+   four, step 1 again through the plain chain: the loss within 1e-5
+   relative, the update p' − p per tensor and whole within
+   `ZOO_UPDATE_GATES` (phase 20's 1e-3 / 1e-5 for dae_lka and stvit_lka,
+   3e-3 / 1e-5 for dat_lka, 4e-3 / 3e-5 for mvit_lka: over three times
+   the floors `grad_floor.py --two_d --model NAME` measures; a tensor
+   whose update is rounding noise, an exactly zero gradient on a zero
+   parameter, held by the whole only; the gradients printed beside).
 
 Phase 19 runs right after phase 8, the others in order. Then one JSON
 line of the kernels' numbers and, last, the contract line {"ok": true,
@@ -208,7 +233,7 @@ from deformablelka_tpu_torch import (case_path, main_path, main_path2d, native,
                                      train_path, trainer2d_path, trainer_path)
 from deformablelka_tpu_torch.cli import (predict_simple, run_training, test_synapse2d,
                                          train_skin, train_synapse2d)
-from deformablelka_tpu_torch.grad_floor import plain_versions
+from deformablelka_tpu_torch.grad_floor import NOISE_SHARE, plain_versions
 from deformablelka_tpu_torch.data import nifti
 from deformablelka_tpu_torch.data.augment import ThreadedAugmenter
 from deformablelka_tpu_torch.data.dataset import load_case, load_dataset
@@ -218,10 +243,14 @@ from deformablelka_tpu_torch.inference.predictor3d import TTA_BATCH
 from deformablelka_tpu_torch.inference.sliding_window import SlidingWindowInference
 from deformablelka_tpu_torch.main_path import (BLOCKS, LAUNCHES_PER_FORWARD, PATCH,
                                               SIZE_AWARE, TILES, VOLUME)
+from deformablelka_tpu_torch.models import (BiDAEFormer, DAEFormer, DAELKAFormer,
+                                            DATLKAFormer, HiFormer, MViTLKAFormer, SegFormer,
+                                            SemanticSTViT, STVitLKA, SwinUNet, TransUNet)
 from deformablelka_tpu_torch.models.dlka_former import (dlka_former_acdc,
                                                         dlka_former_synapse,
                                                         dlka_net_pancreas)
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d
+from deformablelka_tpu_torch.nn.layers import init_parameters
 from deformablelka_tpu_torch.nn.lka2d import DeformConv
 from deformablelka_tpu_torch.ops import kernels
 from deformablelka_tpu_torch.ops.convs import to_nchw, to_ncdhw
@@ -244,6 +273,9 @@ STAGES = ((32, 32, 6), (16, 64, 6), (8, 128, 6), (4, 256, 3))
 # each runs two LKA blocks: per forward, two launches of each deform conv
 # (5×5, 7×7-dil3) in the flagship and two chains in the LKA Baseline
 DECODER = ((14, 384), (28, 192), (56, 96))
+# (spatial size, channels) of DAE-LKA's decoder_1 and decoder_0, where its
+# LKA blocks run the 2D chain twice each per forward
+DAE_LKA_DECODER = ((28, 320), (56, 128))
 BATCH_2D = main_path2d.SLICE_BATCH
 DEFORM_SITES = ((5, 1), (7, 3))  # (k, dilation)
 # (spatial size, channels, K, dilation, launches per forward) of the dilated
@@ -719,6 +751,52 @@ def _offsets_2d(shape, g, reach=2.5):
     return torch.where(pick < 0.25, off.round(), off)
 
 
+def _chain_row(x, g, sites: int, label: str = "") -> dict:
+    """Kernel 5 on x (B, S, S, C) with seeded weights against its plain
+    version: max|err| against the stated tolerance, its time and cuDNN's
+    two depthwise `F.conv2d` in turns (CUDA events, then device time), the
+    plain version's and the bound's. `sites`: its launches per forward of
+    the LKA Baseline (the kernel line's sums)."""
+    dev = x.device
+    B, S, _, C = x.shape
+    w5 = torch.randn(5, 5, 1, C, device=dev, generator=g) / 5
+    b5 = torch.randn(C, device=dev, generator=g) * 0.1
+    w7 = torch.randn(7, 7, 1, C, device=dev, generator=g) / 7
+    b7 = torch.randn(C, device=dev, generator=g) * 0.1
+    ref = chain2d_plain(x, w5, b5, w7, b7)
+    got = kernels.dw_chain2d(x, w5, b5, w7, b7)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    tol = REL_TOL * max(1.0, ref.abs().max().item())
+    # the kernel and the library call (two depthwise F.conv2d on NCHW
+    # tensors) timed alike: CUDA events, then device time
+    kernel = lambda: kernels.dw_chain2d(x, w5, b5, w7, b7)
+    xn = to_nchw(x).contiguous()
+    w5n, w7n = w5.permute(3, 2, 0, 1).contiguous(), w7.permute(3, 2, 0, 1).contiguous()
+    library = lambda: F.conv2d(F.conv2d(xn, w5n, b5, padding=2, groups=C),
+                               w7n, b7, padding=9, dilation=3, groups=C)
+    ms, lms = timed_in_turns_ms(kernel, library, 20)
+    dms = device_ms(kernel, 20, "dw_chain2d (hand kernel)")
+    ldms = device_ms(library, 20)
+    pms = timed_ms(lambda: chain2d_plain(x, w5, b5, w7, b7), 10)
+    n_bytes = 4 * (2 * B * S * S * C + (25 + 49 + 2) * C)
+    flops = B * S * S * C * 2 * (25 + 49)
+    bnd = bound_ms(n_bytes, flops)
+    bms, by = _bound(bnd)
+    row = dict(S=S, C=C, sites=sites, err=err, tol=tol, ms=ms,
+               plain_ms=pms, lib_ms=lms, device_ms=dms,
+               lib_device_ms=ldms, **bnd)
+    print(f"phase 8 {label}dw_chain2d B={B} {S}^2 C={C}: max|err| {err:.3e} (tol "
+          f"{tol:.3e}), kernel {ms:.4f} ms ({dms:.4f} device), F.conv2d x2 "
+          f"{lms:.4f} ms ({ldms:.4f} device): kernel/library {ms / lms:.3f} "
+          f"({dms / ldms:.3f} device); plain {pms:.4f} ms, bound {bms:.4f} ms "
+          f"({by}; bound / device time {bms / dms:.3f})", flush=True)
+    if not err <= tol:
+        fail(f"dw_chain2d disagrees with its plain version at {S}^2 C={C}")
+    del xn, ref, got
+    return row
+
+
 def phase_2d_kernels():
     """The 2D kernels against their plain versions at the decoder shapes."""
     dev = torch.device("cuda")
@@ -764,41 +842,15 @@ def phase_2d_kernels():
             if not err <= tol:
                 fail(f"deform_dw_conv2d disagrees with its plain version at {S}^2 C={C} k={k}")
             del off, ref, got, xn
-        w5 = torch.randn(5, 5, 1, C, device=dev, generator=g) / 5
-        b5 = torch.randn(C, device=dev, generator=g) * 0.1
-        w7 = torch.randn(7, 7, 1, C, device=dev, generator=g) / 7
-        b7 = torch.randn(C, device=dev, generator=g) * 0.1
-        ref = chain2d_plain(x, w5, b5, w7, b7)
-        got = kernels.dw_chain2d(x, w5, b5, w7, b7)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        tol = REL_TOL * max(1.0, ref.abs().max().item())
-        # the kernel and the library call (two depthwise F.conv2d on NCHW
-        # tensors) timed alike: CUDA events, then device time
-        kernel = lambda: kernels.dw_chain2d(x, w5, b5, w7, b7)
-        xn = to_nchw(x).contiguous()
-        w5n, w7n = w5.permute(3, 2, 0, 1).contiguous(), w7.permute(3, 2, 0, 1).contiguous()
-        library = lambda: F.conv2d(F.conv2d(xn, w5n, b5, padding=2, groups=C),
-                                   w7n, b7, padding=9, dilation=3, groups=C)
-        ms, lms = timed_in_turns_ms(kernel, library, 20)
-        dms = device_ms(kernel, 20, "dw_chain2d (hand kernel)")
-        ldms = device_ms(library, 20)
-        pms = timed_ms(lambda: chain2d_plain(x, w5, b5, w7, b7), 10)
-        n_bytes = 4 * (2 * B * S * S * C + (25 + 49 + 2) * C)
-        flops = B * S * S * C * 2 * (25 + 49)
-        bnd = bound_ms(n_bytes, flops)
-        bms, by = _bound(bnd)
-        rows["dw_chain2d"].append(dict(S=S, C=C, sites=2, err=err, tol=tol, ms=ms,
-                                       plain_ms=pms, lib_ms=lms, device_ms=dms,
-                                       lib_device_ms=ldms, **bnd))
-        print(f"phase 8 dw_chain2d B={B} {S}^2 C={C}: max|err| {err:.3e} (tol "
-              f"{tol:.3e}), kernel {ms:.4f} ms ({dms:.4f} device), F.conv2d x2 "
-              f"{lms:.4f} ms ({ldms:.4f} device): kernel/library {ms / lms:.3f} "
-              f"({dms / ldms:.3f} device); plain {pms:.4f} ms, bound {bms:.4f} ms "
-              f"({by}; bound / device time {bms / dms:.3f})", flush=True)
-        if not err <= tol:
-            fail(f"dw_chain2d disagrees with its plain version at {S}^2 C={C}")
-        del x, xn, ref, got
+        rows["dw_chain2d"].append(_chain_row(x, g, sites=2))
+        del x
+        torch.cuda.empty_cache()
+    # DAE-LKA's decoder sites, held and timed alike; outside the LKA
+    # Baseline's per-forward sums of the kernel line (sites 0)
+    for S, C in DAE_LKA_DECODER:
+        x = torch.randn(B, S, S, C, device=dev, generator=g)
+        rows["dw_chain2d"].append(_chain_row(x, g, sites=0, label="DAE-LKA "))
+        del x
         torch.cuda.empty_cache()
     return rows
 
@@ -810,7 +862,7 @@ def phase_2d_path():
     S = image.shape[0]
     forwards = -(-S // BATCH_2D)
     launches, walls = {}, {}
-    for config in main_path2d.CONFIGS:
+    for config in main_path2d.FLAGSHIP:
         model, predictor = main_path2d.build(config, seed=0)
         offsets_seen = []
         with torch.no_grad():  # warm-up: one forward at the slice batch
@@ -1698,7 +1750,7 @@ def _synapse2d_cli(tmp: Path) -> dict:
     the kernels and the plain versions."""
     t0 = time.perf_counter()
     trainer2d_path.write_slices(tmp / "slices", tmp / "lists")
-    cases = trainer2d_path.volumes()
+    cases = trainer2d_path.volumes(1)
     print(f"phase 21 Synapse 2D: {trainer2d_path.BATCH * trainer2d_path.TRAIN_BATCHES} "
           f"synthetic {trainer2d_path.SLICE}^2 slices and {len(cases)} volumes of "
           f"{trainer2d_path.VOLUME} made in {time.perf_counter() - t0:.3f} s", flush=True)
@@ -1762,7 +1814,91 @@ def _synapse2d_cli(tmp: Path) -> dict:
         fail("the test CLI's labels through the kernels disagree with the plain versions")
     del predictor
     torch.cuda.empty_cache()
-    return step_launches
+    return step_launches, cases
+
+
+def _zoo_clis(tmp: Path, cases) -> dict:
+    """The CLIs' `--model`: `train_synapse2d --model dae_lka` (1 epoch of 2
+    batches), the test CLI's volume function on its `best_model` (the same
+    volumes) through the kernels and the plain versions, `train_skin
+    --model transunet --evaluate` (1 epoch of 2 batches). Returns the
+    launches by path."""
+    out = {}
+    want = trainer2d_path.LAUNCHES_PER_STEP["dae_lka"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with trainer2d_path.Recorder() as rec:
+        trainer = train_synapse2d.main(trainer2d_path.synapse_argv(
+            tmp / "slices", tmp / "lists", tmp / "zoo_out", "--model", "dae_lka", epochs=1))
+    t = rec.times
+    print(f"phase 21 train_synapse2d --model dae_lka B={trainer2d_path.BATCH} "
+          f"{trainer2d_path.IMG}^2, 1 epoch x {trainer2d_path.TRAIN_BATCHES} batches: steps "
+          f"{_seconds(t['step'])} s; host seconds per batch {_seconds(t['batch'])}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses "
+          f"{[round(l, 6) for l in trainer.losses]}; launches per step {rec.launches}",
+          flush=True)
+    if (len(rec.launches) != trainer2d_path.TRAIN_BATCHES
+            or any(c != want for c in rec.launches)):
+        fail(f"train_synapse2d --model dae_lka step launches {rec.launches}, expected {want}")
+    if not ((tmp / "zoo_out" / "ckpt" / "best_model").is_dir()
+            and np.all(np.isfinite(trainer.losses))):
+        fail("train_synapse2d --model dae_lka did not train or write best_model")
+    out["train_synapse2d --model dae_lka, 1 epoch of 2 batches"] = {
+        n: sum(c[n] for c in rec.launches) for n in rec.launches[0]}
+    del trainer
+
+    predictor = test_synapse2d.load_predictor(tmp / "zoo_out", model="dae_lka")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = test_synapse2d.evaluate_volumes(predictor, cases)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    with plain_versions():
+        labels_p = [predictor.predict_volume(image) for image, _, _ in cases]
+    agree = min(float((r[3] == lp).mean()) for r, lp in zip(res, labels_p))
+    forwards = len(cases) * -(-trainer2d_path.VOLUME[0] // BATCH_2D)
+    expected = {n: 0 for n in launches}
+    expected["dw_chain2d"] = main_path2d.LAUNCHES_PER_FORWARD["dae_lka"]["dw_chain2d"] * forwards
+    print(f"phase 21 test_synapse2d --model dae_lka (evaluate_volumes) on best_model: "
+          f"{wall:.3f} s for {len(cases)} volume(s) of {trainer2d_path.VOLUME}, mean Dice "
+          f"{[round(r[1], 4) for r in res]}, launches {launches}; label agreement with the "
+          f"plain versions {agree:.6f} (min {MIN_AGREEMENT})", flush=True)
+    if launches != expected:
+        fail(f"test CLI --model dae_lka launches {launches}, expected {expected}")
+    if agree < MIN_AGREEMENT:
+        fail("the dae_lka test CLI's labels through the kernels disagree with the plain run")
+    out[f"test_synapse2d --model dae_lka, {len(cases)} volume"] = launches
+    del predictor
+    torch.cuda.empty_cache()
+
+    root = tmp / "skin"
+    if not (root / "data_train.npy").exists():
+        trainer2d_path.write_skin(root)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with trainer2d_path.Recorder() as rec:
+        trainer = train_skin.main(trainer2d_path.skin_argv(
+            root, tmp / "skin_transunet", "--model", "transunet", epochs=1))
+    best = trainer.test_metrics["best"]
+    metrics = {k: best[k] for k in ("dsc", "accuracy", "specificity", "sensitivity")}
+    print(f"phase 21 train_skin --model transunet B={trainer2d_path.SKIN_BATCH} "
+          f"{trainer2d_path.IMG}^2 RGB, 1 class, 1 epoch of "
+          f"{trainer2d_path.SKIN_SPLITS[0] // trainer2d_path.SKIN_BATCH} batches: steps "
+          f"{_seconds(rec.times['step'])} s; best val loss {trainer.best_val_loss:.6f}; test "
+          f"{metrics}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB; launches per step {rec.launches}", flush=True)
+    if any(any(c.values()) for c in rec.launches):
+        fail(f"train_skin --model transunet launched a hand kernel: {rec.launches}")
+    if not ((tmp / "skin_transunet" / "best_model").is_dir()
+            and np.isfinite(trainer.best_val_loss)
+            and np.all(np.isfinite(list(metrics.values())))):
+        fail("train_skin --model transunet did not write its best checkpoint or its "
+             "metrics are not finite")
+    out["train_skin --model transunet, 1 epoch of 2 batches"] = {
+        n: sum(c[n] for c in rec.launches) for n in rec.launches[0]}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
 
 
 def _lka_baseline_step():
@@ -1813,14 +1949,171 @@ def _skin_cli(tmp: Path) -> dict:
 
 def phase_2d_clis():
     """Phase 21: train_synapse2d, the test CLI's volume function, the LKA
-    Baseline's step and train_skin."""
+    Baseline's step and train_skin; then the same CLIs with `--model`."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        synapse = _synapse2d_cli(tmp)
+        synapse, cases = _synapse2d_cli(tmp)
         baseline = _lka_baseline_step()
         skin = _skin_cli(tmp)
+        zoo = _zoo_clis(tmp, cases)
     torch.cuda.empty_cache()
-    return synapse, baseline, skin
+    return synapse, baseline, skin, zoo
+
+
+# the zoo's narrow widths for phase 22's card-against-CPU forward (224², as
+# the CPU tests `tests/test_torch_zoo_*.py` hold them against the JAX package)
+ZOO_NARROW = {
+    "daeformer": lambda: DAEFormer(9, dims=(32, 64, 128), layers=(1, 1, 1)),
+    "dae_lka": lambda: DAELKAFormer(9, dims=(32, 64, 128), layers=(1, 1, 1)),
+    "mvit_lka": lambda: MViTLKAFormer(9, embed_dim=16),
+    "dat_lka": lambda: DATLKAFormer(9, dims=(24, 48, 96, 192), depths=(2, 2, 2, 2)),
+    "stvit_lka": lambda: STVitLKA(9, embed_dim=24, num_heads=(1, 2, 4, 8)),
+    "semantic_stvit": lambda: SemanticSTViT(9, embed_dim=24, depths=(2, 2, 6, 2, 2, 2, 2),
+                                            num_heads=(1, 2, 4, 8, 4, 2, 1)),
+    "bidaeformer": lambda: BiDAEFormer(9, dims=(64, 96, 128), depths=(1, 1, 1)),
+    "swinunet": lambda: SwinUNet(9, embed_dim=16, num_heads=(1, 2, 4, 8)),
+    "segformer": lambda: SegFormer(9, dims=(16, 32, 40, 64), layers=(1, 1, 1, 1),
+                                   embed_dim=32),
+    "transunet": lambda: TransUNet(9, apply_sigmoid=False, hidden=64, num_layers=2, heads=4,
+                                   mlp_dim=128, block_units=(1, 1, 1), width_factor=0.5),
+    "hiformer": lambda: HiFormer(9, swin_dims=(32, 64, 128), cnn_dims=(16, 32, 64),
+                                 cnn_blocks=(1, 1, 1), swin_depths=(2, 2, 2),
+                                 swin_heads=(1, 2, 4), dlf_heads=(2, 2)),
+}
+ZOO_CPU_RTOL = 1e-3   # card vs CPU, max|Δ| / max(1, max|CPU|), TF32 off
+# phase 22's step 1 against the plain chain: (each tensor's update, the
+# whole update) relative, over three times the floors that `grad_floor.py
+# --two_d --model NAME` measured, seeds 0-2 (plain runs with the image ×
+# (1 + 1e-7) or the batch swapped; H100 80GB HBM3, 700 W): dae_lka 1.728e-4 /
+# 2.715e-6, stvit_lka 4.678e-5 / 1.374e-6 (phase 20's 2D gates), dat_lka
+# 8.208e-4 / 2.732e-6, mvit_lka 1.053e-3 / 7.301e-6. A tensor whose update
+# is ≤ `grad_floor.NOISE_SHARE` of the whole's is rounding noise (an
+# exactly zero gradient on a zero parameter) and held by the whole only.
+ZOO_UPDATE_GATES = {"dae_lka": (1e-3, 1e-5), "stvit_lka": (1e-3, 1e-5),
+                    "dat_lka": (3e-3, 1e-5), "mvit_lka": (4e-3, 3e-5)}
+
+
+def _zoo_card_vs_cpu(name) -> tuple:
+    """The narrow model on the card against itself on the CPU, batch 2."""
+    model = ZOO_NARROW[name]()
+    init_parameters(model, torch.Generator().manual_seed(0))
+    main_path2d.drive_gates_2d(model, 11)
+    model.eval()
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, 224, 224, 1).astype(np.float32))
+    with torch.no_grad():
+        ref = model(x)
+        got = model.cuda()(x.cuda()).cpu()
+    return (got - ref).abs().max().item() / max(1.0, ref.abs().max().item()), \
+        bool(torch.isfinite(got).all())
+
+
+def _forward_ms(model, x, reps: int = 5) -> float:
+    """The median of `reps` forwards after one warm call, CUDA events."""
+    times = []
+    with torch.no_grad():
+        model(x)
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            model(x)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_2d_zoo() -> dict:
+    """Phase 22: the 11 zoo models on the card. Returns the launches by
+    path (the forwards, the training steps)."""
+    fwd_launches, step_launches = {}, {}
+    batch = trainer2d_path.synthetic_batch(0)
+    x = torch.from_numpy(batch["image"]).cuda()
+    for name in main_path2d.ZOO:
+        t_start = time.perf_counter()
+        err, finite = _zoo_card_vs_cpu(name)
+        print(f"phase 22 {name} narrow, 224^2 B=2: card vs CPU max|Δ|/max(1, max|CPU|) "
+              f"{err:.3e} (tol {ZOO_CPU_RTOL}), finite {finite}", flush=True)
+        if not (err <= ZOO_CPU_RTOL and finite):
+            fail(f"{name} on the card disagrees with the CPU")
+        model, _ = main_path2d.build(name, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _forward_ms(model, x)
+        peak = torch.cuda.max_memory_allocated()
+        kernels.reset_launches()
+        with torch.no_grad():
+            labels = model(x).argmax(-1)
+        launches = kernels.launch_counts()
+        expected = {n: main_path2d.LAUNCHES_PER_FORWARD[name].get(n, 0) for n in launches}
+        fwd_launches[name] = launches
+        agree = None
+        if expected["dw_chain2d"]:
+            with plain_versions(), torch.no_grad():
+                agree = float((model(x).argmax(-1) == labels).float().mean())
+        print(f"phase 22 {name} full width ({n_params / 1e6:.2f} M parameters) 224^2 "
+              f"B={x.shape[0]}: {ms:.3f} ms per forward (median of 5 after a warm call), "
+              f"peak device memory {peak / 2**30:.3f} GiB, launches per forward {launches}"
+              + ("" if agree is None else f"; labels vs the plain chain {agree:.6f} (min "
+                 f"{MIN_AGREEMENT})"), flush=True)
+        if launches != expected:
+            fail(f"{name} forward launches {launches}, expected {expected}")
+        if agree is not None and agree < MIN_AGREEMENT:
+            fail(f"{name}'s labels through the chain kernel disagree with the plain chain")
+        del model, labels
+        torch.cuda.empty_cache()
+
+        times, losses, per_step, trainer, peak = _train_steps_2d(batch, name)
+        del trainer
+        torch.cuda.empty_cache()
+        step_launches[name] = {n: sum(c[n] for c in per_step) for n in per_step[0]}
+        print(f"phase 22 {name} Trainer2D B={trainer2d_path.BATCH} "
+              f"{trainer2d_path.IMG}^2: {float(np.median(times[1:])):.4f} s/step (median of "
+              f"steps 2-3; steps {_seconds(times)} s), peak device memory "
+              f"{peak / 2**30:.3f} GiB, losses {[round(l, 6) for l in losses]}, launches per "
+              f"step {per_step[0]}", flush=True)
+        if any(c != trainer2d_path.LAUNCHES_PER_STEP[name] for c in per_step):
+            fail(f"{name} step launches {per_step}")
+        if not np.all(np.isfinite(losses)):
+            fail(f"a {name} training loss is not finite")
+        if expected["dw_chain2d"]:
+            # the 2D gates hold the update p' - p, as phase 20: a gradient
+            # whose exact value is 0 (the keys' bias under the softmax over
+            # tokens) differs by up to 1.2 relative between two correct runs
+            # (`grad_floor.py --two_d --model dae_lka`)
+            loss_k, upd_k, grads_k, _ = _first_update_2d(batch, name)
+            loss_p, upd_p, grads_p, _ = _first_update_2d(batch, name, patch=plain_versions())
+            # a tensor whose update is rounding noise (an exactly zero
+            # gradient on a zero parameter, as MViT's `norm_k.bias` under
+            # the softmax) is held by the whole update only
+            share = {n: (u.norm() / torch.cat([t.flatten() for t in upd_p.values()]).norm()
+                         ).item() for n, u in upd_p.items()}
+            noise = sorted(n for n in share if share[n] <= NOISE_SHARE)
+            _, _, whole = grad_rel(upd_k, upd_p)
+            worst, worst_rel, _ = grad_rel({n: upd_k[n] for n in upd_p if n not in noise},
+                                           {n: u for n, u in upd_p.items() if n not in noise})
+            g_worst, g_rel, g_whole = grad_rel(grads_k, grads_p)
+            held = min(v for n, v in share.items() if n not in noise)
+            tensor_rtol, whole_rtol = ZOO_UPDATE_GATES[name]
+            print(f"phase 22 {name} step 1 vs the plain chain: loss {loss_k:.7f} vs "
+                  f"{loss_p:.7f} (rtol {LOSS_RTOL}); update p' - p over {len(upd_p)} tensors: "
+                  f"worst ‖Δu‖/‖u‖ {worst_rel:.3e} ({worst}; max {tensor_rtol}), "
+                  f"whole {whole:.3e} (max {whole_rtol}); {len(noise)} tensors of noise "
+                  f"(‖u‖/‖U‖ ≤ {max((share[n] for n in noise), default=0):.2e}; the smallest "
+                  f"held {held:.2e}){': ' + ', '.join(noise[:3]) + ' …' if noise else ''}; "
+                  f"gradients (not gated): worst {g_rel:.3e} ({g_worst}), whole {g_whole:.3e}",
+                  flush=True)
+            if abs(loss_k - loss_p) > LOSS_RTOL * abs(loss_p):
+                fail(f"{name}'s training loss through the chain kernel disagrees")
+            if worst_rel > tensor_rtol or whole > whole_rtol:
+                fail(f"{name}'s update through the chain kernel disagrees ({worst})")
+            del upd_k, upd_p, grads_k, grads_p
+            torch.cuda.empty_cache()
+        print(f"phase 22 {name}: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"2D zoo, one forward of each of the 11": {
+                n: sum(c[n] for c in fwd_launches.values()) for n in kernels.launch_counts()},
+            "2D zoo Trainer2D, 3 steps of each of the 11": {
+                n: sum(c[n] for c in step_launches.values()) for n in kernels.launch_counts()}}
 
 
 def kernel_line(rows, launches):
@@ -1870,6 +2163,14 @@ def kernel_line(rows, launches):
                     "tc_bound_ms", "yardstick_ms"):
             if key in rs[0]:
                 out[-1][key] = per_call(key)
+        # sites held and timed outside the per-forward sums (DAE-LKA's chain)
+        other = [r for r in rs if r["sites"] == 0]
+        if other:
+            out[-1]["other_sites"] = [{
+                "shape": [BATCH_2D, r["S"], r["S"], r["C"]], "max_abs_err": r["err"],
+                "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                "library_ms": r["lib_ms"], "library_device_ms": r["lib_device_ms"],
+                "bound_ms": _bound(r)[0], "bound_by": _bound(r)[1]} for r in other]
     return {"kernels": out}
 
 
@@ -1903,7 +2204,8 @@ def main() -> int:
     launches_trainer, launches_val = phase_synapse_trainer()
     launches_pancreas_trainer, _ = phase_pancreas_trainer()
     per_step_2d, _ = phase_2d_train_step()
-    launches_synapse2d, launches_baseline2d, launches_skin = phase_2d_clis()
+    launches_synapse2d, launches_baseline2d, launches_skin, launches_zoo_clis = phase_2d_clis()
+    launches_zoo = phase_2d_zoo()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernel_line(rows, {
         "inference main path": launches, "training path, 3 steps": train_launches,
@@ -1918,7 +2220,8 @@ def main() -> int:
                                            for n in per_step_2d[0]},
         "train_synapse2d, 2 epochs of 2 batches": launches_synapse2d,
         "LKA Baseline Trainer2D, 3 steps": launches_baseline2d,
-        "train_skin, 2 epochs of 2 batches": launches_skin})), flush=True)
+        "train_skin, 2 epochs of 2 batches": launches_skin,
+        **launches_zoo_clis, **launches_zoo})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,13 +7,15 @@ and mean Dice/HD95, optionally write NIfTI predictions:
 
     python -m deformablelka_tpu_torch.cli.test_synapse2d --volume_path VOL
         --list_dir LISTS --output_dir OUT [--checkpoint best_model]
-        [--no_deform] [--is_savenii --test_save_dir DIR] [--device cuda|cpu]
+        [--no_deform | --model NAME] [--is_savenii --test_save_dir DIR]
+        [--device cuda|cpu]
 
 `OUT/ckpt/<checkpoint>` is a `torch.save` checkpoint of
 `training/trainer2d.Trainer2D` ({"model": state_dict}). Runs on the card
 unless `--device cpu`, in float32; the h5 volumes need h5py
-(`evaluate_volumes` takes volumes already in memory). The 2D ablation
-zoo (`--model`) is not ported yet and raises.
+(`evaluate_volumes` takes volumes already in memory). `--model` names the
+2D zoo's network the checkpoint was trained with (`models/registry.py`);
+an unknown name raises ValueError.
 """
 
 from __future__ import annotations
@@ -38,16 +40,21 @@ def parse_args(argv=None):
     ap.add_argument("--test_save_dir", default="./predictions")
     ap.add_argument("--no_deform", action="store_true")
     ap.add_argument("--model", default=None,
-                    help="registry name of an ablation model (not ported yet: raises)")
+                    help="registry name of the ablation model the checkpoint was "
+                         "trained with (models/registry.py)")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: cuda (default) or cpu")
     return ap.parse_args(argv)
 
 
-def zoo_not_ported(name: str):
-    return NotImplementedError(
-        f"--model {name}: the 2D ablation zoo is not ported to deformablelka_tpu_torch "
-        "yet (ROADMAP Queue 1 item 6); only the MaxViT D-LKA Net and its LKA Baseline run")
+def build_model(model, num_classes, img_size, no_deform=False, seed=0, device="cuda"):
+    """The registry's `model` if one is named, else the flagship
+    (`no_deform`: its LKA Baseline), with random weights from `seed`."""
+    from deformablelka_tpu_torch.models import registry
+
+    if model is None:
+        model = "maxvit_lka" if no_deform else "maxvit_deform_lka"
+    return registry.build_model_2d(model, num_classes, img_size, seed, device)
 
 
 def evaluate_volumes(predictor, cases, save_dir=None) -> list:
@@ -71,15 +78,13 @@ def evaluate_volumes(predictor, cases, save_dir=None) -> list:
 
 
 def load_predictor(output_dir, checkpoint="best_model", num_classes=9, img_size=224,
-                   no_deform=False, device="cuda"):
-    """The `Predictor2D` of the weights in `<output_dir>/ckpt/<checkpoint>`."""
+                   no_deform=False, device="cuda", model=None):
+    """The `Predictor2D` of the weights in `<output_dir>/ckpt/<checkpoint>`
+    for the flagship, its LKA Baseline or the registry's `model`."""
     from deformablelka_tpu_torch.inference.predictor2d import Predictor2D
-    from deformablelka_tpu_torch.models.maxvit_dlka import (maxvit_dlka_former,
-                                                            maxvit_lka_former)
     from deformablelka_tpu_torch.training.checkpoint import CheckpointManager
 
-    factory = maxvit_lka_former if no_deform else maxvit_dlka_former
-    model = factory(num_classes, img_size=img_size, device=device)
+    model = build_model(model, num_classes, img_size, no_deform, device=device)
     state, _ = CheckpointManager(Path(output_dir) / "ckpt").load(checkpoint)
     model.load_state_dict(state["model"], strict=True)
     return Predictor2D(model, (img_size, img_size), num_classes, device=device)
@@ -87,13 +92,11 @@ def load_predictor(output_dir, checkpoint="best_model", num_classes=9, img_size=
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.model:
-        raise zoo_not_ported(args.model)
 
     from deformablelka_tpu_torch.data.synapse2d import SynapseDataset2D
 
     predictor = load_predictor(args.output_dir, args.checkpoint, args.num_classes,
-                               args.img_size, args.no_deform, args.device)
+                               args.img_size, args.no_deform, args.device, args.model)
     ds = SynapseDataset2D(args.volume_path, args.list_dir, "test_vol",
                           img_size=args.img_size)
     cases = ((s["image"], s["label"], s["case_name"])

@@ -9,12 +9,13 @@ from that checkpoint:
 
     python -m deformablelka_tpu_torch.cli.train_skin --root_path NPY
         [--output_dir ./model_skin] [--batch_size 16] [--max_epochs 100]
-        [--no_deform] [--evaluate] [--device cuda|cpu]
+        [--no_deform | --model NAME] [--evaluate] [--device cuda|cpu]
 
 Runs on the card unless `--device cpu`, in float32. `main` returns the
 trainer, with the test metrics in `trainer.test_metrics` after
-`--evaluate`. The skin baselines (`--model`) are not ported yet and
-raise.
+`--evaluate`. `--model` trains a network of the 2D zoo instead
+(`models/registry.py`; the skin baselines are transunet and hiformer),
+with one output class; an unknown name raises ValueError.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def parse_args(argv=None):
     ap.add_argument("--no_deform", action="store_true",
                     help="LKA baseline decoder")
     ap.add_argument("--model", default=None,
-                    help="skin baseline from the 2D zoo (not ported yet: raises)")
+                    help="skin baseline from models/registry.py (transunet, hiformer, "
+                         "swinunet, ...)")
     ap.add_argument("--evaluate", action="store_true",
                     help="after training, evaluate best_model on the test split")
     ap.add_argument("--device", default="cuda",
@@ -62,21 +64,15 @@ def evaluate_best_model(trainer, root_path, device) -> dict:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.model:
-        raise NotImplementedError(
-            f"--model {args.model}: the skin baselines of the 2D zoo are not ported to "
-            "deformablelka_tpu_torch yet (ROADMAP Queue 1 item 6)")
 
+    from deformablelka_tpu_torch.cli.test_synapse2d import build_model
     from deformablelka_tpu_torch.data.skin import ISICLoader
-    from deformablelka_tpu_torch.models.maxvit_dlka import (maxvit_dlka_former,
-                                                            maxvit_lka_former)
     from deformablelka_tpu_torch.training.trainer2d import TrainerSkin
 
+    model = build_model(args.model, 1, args.img_size, args.no_deform, args.seed, args.device)
     train_loader = ISICLoader(args.root_path, "train",
                               batch_size=args.batch_size, seed=args.seed)
     val_loader = ISICLoader(args.root_path, "val", batch_size=1)
-    factory = maxvit_lka_former if args.no_deform else maxvit_dlka_former
-    model = factory(1, img_size=args.img_size, seed=args.seed, device=args.device)
     trainer = TrainerSkin(model, args.output_dir, base_lr=args.base_lr,
                           max_epochs=args.max_epochs)
     trainer.run_training(train_loader, val_loader)

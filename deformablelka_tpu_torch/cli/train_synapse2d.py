@@ -10,12 +10,15 @@ eval every eval_interval epochs after half the run):
         --list_dir LISTS [--volume_path VOL] [--output_dir ./model_out]
         [--no_deform] [--pretrained_backbone timm.pth] [--device cuda|cpu]
 
-trains the MaxViT D-LKA Net (`--no_deform`: the LKA Baseline), built from
-`--seed`, with `training/trainer2d.Trainer2D` on the npz slices of
-`train.txt`; with `--volume_path` the eval hook predicts test_vol.txt's
+        [--model NAME]
+
+trains the MaxViT D-LKA Net (`--no_deform`: the LKA Baseline; `--model`:
+a network of the 2D ablation zoo by its name in `models/registry.py`),
+built from `--seed`, with `training/trainer2d.Trainer2D` on the npz slices
+of `train.txt`; with `--volume_path` the eval hook predicts test_vol.txt's
 h5 volumes and prints their mean Dice. Runs on the card unless `--device
-cpu`, in float32. `main` returns the trainer. The 2D ablation zoo
-(`--model`) is not ported yet and raises.
+cpu`, in float32. `main` returns the trainer. An unknown `--model` raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -43,7 +46,10 @@ def parse_args(argv=None):
     ap.add_argument("--no_deform", action="store_true",
                     help="train the LKA baseline decoder")
     ap.add_argument("--model", default=None,
-                    help="registry name of an ablation model (not ported yet: raises)")
+                        help="registry name of an ablation model to train instead of the "
+                         "flagship (models/registry.py: daeformer, dae_lka, mvit_lka, "
+                         "dat_lka, stvit_lka, semantic_stvit, bidaeformer, swinunet, "
+                         "segformer, transunet, hiformer, ...)")
     ap.add_argument("--pretrained_backbone", default=None,
                     help="timm MaxViT .pth to warm-start the encoder")
     ap.add_argument("--device", default="cuda",
@@ -56,28 +62,22 @@ def main(argv=None, eval_cases=None):
     for `--volume_path`'s h5 files in the eval hook."""
     args = parse_args(argv)
 
-    from deformablelka_tpu_torch.cli.test_synapse2d import evaluate_volumes, zoo_not_ported
-
-    if args.model:
-        raise zoo_not_ported(args.model)
+    from deformablelka_tpu_torch.cli.test_synapse2d import build_model, evaluate_volumes
 
     import numpy as np
 
     from deformablelka_tpu_torch.convert.backbone import load_maxvit_backbone
     from deformablelka_tpu_torch.data.synapse2d import SynapseDataset2D, SynapseLoader2D
     from deformablelka_tpu_torch.inference.predictor2d import Predictor2D
-    from deformablelka_tpu_torch.models.maxvit_dlka import (maxvit_dlka_former,
-                                                            maxvit_lka_former)
     from deformablelka_tpu_torch.training.trainer2d import Trainer2D
 
     np.random.seed(args.seed)
+    model = build_model(args.model, args.num_classes, args.img_size, args.no_deform,
+                        args.seed, args.device)
     ds = SynapseDataset2D(args.root_path, args.list_dir, "train",
                           img_size=args.img_size, seed=args.seed,
                           num_classes=args.num_classes)
     loader = SynapseLoader2D(ds, args.batch_size)
-    factory = maxvit_lka_former if args.no_deform else maxvit_dlka_former
-    model = factory(args.num_classes, img_size=args.img_size, seed=args.seed,
-                    device=args.device)
 
     if eval_cases is None and args.volume_path:
         vol_ds = SynapseDataset2D(args.volume_path, args.list_dir, "test_vol",

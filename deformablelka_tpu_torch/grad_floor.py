@@ -1,6 +1,7 @@
 """How far two correct runs of one training step differ, tensor by tensor.
 
-    python -m deformablelka_tpu_torch.grad_floor [--small | --two_d] [--seeds 0 1 2]
+    python -m deformablelka_tpu_torch.grad_floor [--small | --two_d [--model NAME]]
+        [--seeds 0 1 2]
 
 `chip_smoke.py` holds step 1 of the training path through the hand kernels
 against the same step through the plain versions (phase 7), and the small
@@ -21,7 +22,10 @@ runs that are all correct, for each seed:
 With `--two_d` the step is the 2D flagship's: `Trainer2D`'s step on one
 synthetic batch at 224², batch 24 (`trainer2d_path.step_trainer`,
 `synthetic_batch`; `chip_smoke.py` phase 20), with the card as the
-reference and the offsets' floors read at its 12 deform sites.
+reference and the offsets' floors read at its 12 deform sites; with
+`--model` the step is that configuration's instead (a zoo registry name,
+as `trainer2d_path.step_trainer` takes it: "dae_lka" has no deform site,
+its hand kernel is the LKA chain).
 
 For each run against the reference it prints the largest per-tensor
 ‖Δg‖/‖g‖ (g the gradient) and ‖Δu‖/‖u‖ (u the step's update) with its
@@ -52,6 +56,10 @@ from deformablelka_tpu_torch.ops.convs import to_ncdhw
 
 SCALE = 1 + 1e-7
 SMALL = (16, 32, 32)
+# a tensor whose update is at most this share of the whole update's norm
+# is rounding noise (an exactly zero gradient on a zero parameter, as
+# MViT's `norm_k.bias` under the softmax): a relative gate cannot hold it
+NOISE_SHARE = 1e-7
 
 
 def _deform_dw_recomputed(x, offset, w, dil: int = 1):
@@ -122,12 +130,12 @@ def one_step(seed, img_size, device, plain, scale=1.0, swap=False, kappa=False):
             "kappa": kap}
 
 
-def one_step_2d(seed, device, plain, scale=1.0, swap=False):
-    """Step 1 of the 2D flagship's trainer (model from `seed`, batch from
-    `seed`): loss, gradients, updates and the offset floors at each deform
-    site (all on the CPU)."""
+def one_step_2d(seed, device, plain, scale=1.0, swap=False, config="dlka"):
+    """Step 1 of the 2D trainer of `config` (the flagship by default; model
+    from `seed`, batch from `seed`): loss, gradients, updates and the
+    offset floors at each deform site (all on the CPU)."""
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = trainer2d_path.step_trainer(tmp, seed=seed, device=device)
+        trainer = trainer2d_path.step_trainer(tmp, config, seed=seed, device=device)
     batch = trainer2d_path.synthetic_batch(seed)
     if swap:
         batch = {k: v[::-1].copy() for k, v in batch.items()}
@@ -160,6 +168,12 @@ def compare(run, ref) -> dict:
         worst = max(rel, key=rel.get)
         whole = ((flat(a) - flat(r)).norm() / flat(r).norm()).item()
         out[key] = (worst, rel[worst], whole, sum(v > 1e-3 for v in rel.values()))
+    # the updates' worst over the tensors that are not rounding noise
+    norm = flat(ref["upd"]).norm()
+    held = {n: v for n, v in ((n, ((run["upd"][n] - u).norm() / u.norm()).item())
+                              for n, u in ref["upd"].items()
+                              if u.norm() > NOISE_SHARE * norm)}
+    out["held"] = (max(held, key=held.get), max(held.values()), len(ref["upd"]) - len(held))
     out["crossings"] = {n: int((run["floors"][n] != f).sum())
                         for n, f in ref["floors"].items()}
     out["samples"] = sum(f.numel() for f in ref["floors"].values())
@@ -176,6 +190,9 @@ def report(seed, name, c, loss, loss_ref) -> None:
         at = f"{cross[site[0]]} crossings at its site" if site else "no deform site"
         print(f"  {what}: worst per-tensor {rel:.3e} ({worst}; {at}), whole "
               f"{whole:.3e}, tensors above 1e-3: {over}")
+    worst, rel, noise = c["held"]
+    print(f"  update, {noise} tensors of rounding noise left out (‖u‖ ≤ {NOISE_SHARE} of the "
+          f"whole's): worst per-tensor {rel:.3e} ({worst})")
 
 
 def main() -> None:
@@ -184,6 +201,8 @@ def main() -> None:
                     help="16x32x32 with the CPU as the reference (phase 6)")
     ap.add_argument("--two_d", action="store_true",
                     help="the 2D flagship's Trainer2D step, 224², batch 24 (phase 20)")
+    ap.add_argument("--model", default="dlka",
+                    help="with --two_d: the configuration whose step (default the flagship)")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -192,11 +211,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     img, ref_dev = (SMALL, "cpu") if args.small else (train_path.PATCH, "cuda")
     if args.two_d:
-        step = lambda seed, dev, plain, **kw: one_step_2d(seed, dev, plain, **kw)
+        step = lambda seed, dev, plain, **kw: one_step_2d(seed, dev, plain, config=args.model,
+                                                          **kw)
     else:
         step = lambda seed, dev, plain, **kw: one_step(seed, img, dev, plain, **kw)
     ref_name = f"plain ({ref_dev})"
-    largest = defaultdict(lambda: [0.0, 0.0])
+    largest = defaultdict(lambda: [0.0, 0.0, 0.0, 0.0])
     for seed in args.seeds:
         ref = step(seed, ref_dev, True, **({} if args.two_d else {"kappa": True}))
         runs = {f"{ref_name}, image x (1 + 1e-7)": step(seed, ref_dev, True, scale=SCALE),
@@ -207,15 +227,18 @@ def main() -> None:
             report(seed, f"{name} vs {ref_name}", c, run["loss"], ref["loss"])
             for i, key in enumerate(("grads", "upd")):
                 largest[name][i] = max(largest[name][i], c[key][1])
+            largest[name][2] = max(largest[name][2], c["held"][1])
+            largest[name][3] = max(largest[name][3], c["upd"][2])
         g = ref["grads"]
         kap = sorted(ref["kappa"].items(), key=lambda kv: -kv[1])
         if kap:
             print(f"seed {seed} κ of the conv_offset.weight gradients, largest first: "
                   + "; ".join(f"{n} {k:.3g} (‖g‖ {g[n].norm():.3e})" for n, k in kap[:4])
                   + f"; smallest {kap[-1][1]:.3g}")
-    for name, (gr, up) in largest.items():
+    for name, (gr, up, held, whole) in largest.items():
         print(f"over seeds {args.seeds}, {name}: worst per-tensor gradient "
-              f"{gr:.3e}, update {up:.3e}")
+              f"{gr:.3e}, update {up:.3e} ({held:.3e} but for rounding noise), whole "
+              f"update {whole:.3e}")
 
 
 if __name__ == "__main__":

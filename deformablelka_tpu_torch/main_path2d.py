@@ -11,7 +11,12 @@ dims 96/192/384/768, depths 2/2/5/2, and the LKA decoder):
 - "dlka": `MaxViTDeformableLKAFormer(num_classes=9)`, the flagship; its
   12 deformable convs per forward run `kernels.deform_dw_conv2d`;
 - "lka_baseline": `maxvit_lka_former(num_classes=9)`, the paper's LKA
-  Baseline; its 6 LKA chains per forward run `kernels.dw_chain2d`.
+  Baseline; its 6 LKA chains per forward run `kernels.dw_chain2d`;
+- the 2D ablation zoo, by registry name (`ZOO`, `models/registry.py`):
+  upstream's widths at 224². The LKA Baseline's decoder runs the chain in
+  DAE-LKA (4 per forward, at 28²×320 and 56²×128) and in MViT-LKA,
+  DAT-LKA and STViT-LKA (6, at the Baseline's three sites); the other
+  seven run no hand kernel.
 
 Weights are random from a seed; `build` then sets every layer scale to 1
 and draws the offset nets' weights from the seed, so that attention and
@@ -29,6 +34,7 @@ clock of the case's two zooms alone, and the same profile of 10 batch-1
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -38,6 +44,7 @@ from deformablelka_tpu_torch.inference.predictor2d import Predictor2D
 from deformablelka_tpu_torch.models.maxvit import LayerScale
 from deformablelka_tpu_torch.models.maxvit_dlka import (maxvit_dlka_former,
                                                         maxvit_lka_former)
+from deformablelka_tpu_torch.models.registry import MODELS_2D, build_model_2d
 from deformablelka_tpu_torch.nn.lka2d import DeformConv, _LKABlockBase
 from deformablelka_tpu_torch.profiling import device_profile, print_profile
 
@@ -45,11 +52,21 @@ PATCH = (224, 224)
 CASE = (40, 512, 512)  # slices, height, width: one chunk of 24, one of 16
 NUM_CLASSES = 9
 SLICE_BATCH = 24
-CONFIGS = {"dlka": maxvit_dlka_former, "lka_baseline": maxvit_lka_former}
+# the flagship's two configurations (any image size), then the zoo: every
+# registry name but the flagship's two (224² only)
+FLAGSHIP = ("dlka", "lka_baseline")
+ZOO = tuple(n for n in MODELS_2D if not n.startswith("maxvit"))
+CONFIGS = {"dlka": maxvit_dlka_former, "lka_baseline": maxvit_lka_former,
+           **{name: functools.partial(build_model_2d, name) for name in ZOO}}
+# dw_chain2d launches per forward of the zoo's models with the LKA decoder:
+# `layer_lka_1` twice in each decoder layer but the first
+LKA_DECODER_CHAINS = {"dae_lka": 4, "mvit_lka": 6, "dat_lka": 6, "stvit_lka": 6}
 # kernel launches in one forward of each configuration
 LAUNCHES_PER_FORWARD = {
     "dlka": {"deform_dw_conv2d": 12, "dw_chain2d": 0},
     "lka_baseline": {"deform_dw_conv2d": 0, "dw_chain2d": 6},
+    **{name: {"deform_dw_conv2d": 0, "dw_chain2d": LKA_DECODER_CHAINS.get(name, 0)}
+       for name in ZOO},
 }
 # offset-net weights are N(0, (s / sqrt(fan_in))²) with s by kernel size:
 # the 7×7's input, the 5×5 deform conv's output, is ~4× smaller
@@ -128,7 +145,7 @@ def main() -> None:
         raise SystemExit("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for config in CONFIGS:
+    for config in FLAGSHIP:
         print_profile(f"2D path {config}, case {CASE} at {PATCH}, "
                       f"batch {SLICE_BATCH}", profile_2d_path(config))
     zoom_in, zoom_out = zoom_seconds()

@@ -59,12 +59,13 @@ class FinalPatchExpand_X4(nn.Module):
 
 class DecoderLayer(nn.Module):
     """upstream's MyDecoderLayer at width `dim`. `first` (decoder_3) is a
-    PatchExpand of its input only; the others take (x1, skip x2), both of
-    width `dim`."""
+    PatchExpand of its input only; the others take (x1, skip x2), x1 of
+    width `in_dim` (default `dim`: the JAX `x1_linear` takes its input
+    width from x1) and x2 of width `dim`."""
 
     def __init__(self, dim: int, n_class: int = 9,
                  is_last: bool = False, first: bool = False,
-                 deformable: bool = True):
+                 deformable: bool = True, in_dim: int | None = None):
         super().__init__()
         self.first, self.is_last = first, is_last
         self.reuse_first_lka = not deformable
@@ -72,7 +73,7 @@ class DecoderLayer(nn.Module):
             self.layer_up = PatchExpand(dim)
             return
         block = deformableLKABlock if deformable else LKABlock
-        self.x1_linear = Linear(dim, dim)
+        self.x1_linear = Linear(in_dim or dim, dim)
         self.layer_lka_1 = block(dim)
         if not self.reuse_first_lka:
             self.layer_lka_2 = block(dim)

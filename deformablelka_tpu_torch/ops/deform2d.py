@@ -16,12 +16,14 @@ its Δx, taps row-major over (kh, kw). Weights are in the JAX layout
 `deform_dw_conv2d` is the CPU path of `ops.kernels.deform_dw_conv2d` and
 the reference its CUDA kernel is held against on the card;
 `deform_dw_conv2d_backward`, its autograd, is the same for the backward
-kernel (`ops.kernels.deform_dw_conv2d_bwd`).
+kernel (`ops.kernels.deform_dw_conv2d_bwd`). `grid_sample_bilinear` is
+the DAT encoder's sampler (no TPU kernel: plain XLA in the JAX package).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from deformablelka_tpu_torch.ops.convs import _tuple
 
@@ -110,3 +112,14 @@ def deform_dw_conv2d_backward(x, offset, w, g, dil: int = 1):
         inputs = [t.detach().requires_grad_() for t in (x, offset, w)]
         y = deform_dw_conv2d(*inputs, dil)
         return torch.autograd.grad(y, inputs, g)
+
+
+def grid_sample_bilinear(x, grid):
+    """torch's `F.grid_sample(mode="bilinear", padding_mode="zeros",
+    align_corners=True)` on an NHWC map (the JAX package's
+    `grid_sample_bilinear`, plain XLA there). x (B, H, W, C); grid (B, Hg,
+    Wg, 2) of (x, y) in [−1, 1] → (B, Hg, Wg, C); each corner outside the
+    map contributes zero."""
+    out = F.grid_sample(x.permute(0, 3, 1, 2), grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=True)
+    return out.permute(0, 2, 3, 1)

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import tempfile
 import time
 from collections import defaultdict
@@ -37,10 +38,10 @@ import numpy as np
 import torch
 from scipy.ndimage import gaussian_filter
 
-from deformablelka_tpu_torch import case_path
+from deformablelka_tpu_torch import case_path, main_path2d
 from deformablelka_tpu_torch.cli import train_skin, train_synapse2d
 from deformablelka_tpu_torch.data.synapse2d import SynapseLoader2D, normalize_05
-from deformablelka_tpu_torch.models.maxvit_dlka import maxvit_dlka_former, maxvit_lka_former
+from deformablelka_tpu_torch.models.registry import build_model_2d
 from deformablelka_tpu_torch.ops import kernels
 from deformablelka_tpu_torch.profiling import timed
 from deformablelka_tpu_torch.training.checkpoint import CheckpointManager
@@ -63,10 +64,12 @@ def _launches(**counts) -> dict:
 
 
 # kernel launches per training step: the flagship's 12 deform convs, each
-# once forward and once backward; the LKA Baseline's 6 chains forward
-# (their backward is the plain chain's VJP)
+# once forward and once backward; the chains of the LKA Baseline (6) and of
+# the zoo's LKA decoders forward (their backward is the plain chain's VJP)
 LAUNCHES_PER_STEP = {"dlka": _launches(deform_dw_conv2d=12, deform_dw_conv2d_bwd=12),
-                     "lka_baseline": _launches(dw_chain2d=6)}
+                     "lka_baseline": _launches(dw_chain2d=6),
+                     **{name: _launches(dw_chain2d=main_path2d.LKA_DECODER_CHAINS.get(name, 0))
+                        for name in main_path2d.ZOO}}
 
 
 def _organs(rng, shape, labels: int):
@@ -158,9 +161,10 @@ def synthetic_batch(seed: int = 0, batch: int = BATCH, img: int = IMG,
 def step_trainer(out_dir, config: str = "dlka", seed: int = SEED, img: int = IMG,
                  device="cuda") -> Trainer2D:
     """A `Trainer2D` ready to step: the model as `cli.train_synapse2d`
-    builds it ("dlka": the flagship, "lka_baseline": `--no_deform`), a
-    fresh optimizer, the path's LR schedule (2 epochs of 2 batches)."""
-    factory = {"dlka": maxvit_dlka_former, "lka_baseline": maxvit_lka_former}[config]
+    builds it ("dlka": the flagship, "lka_baseline": `--no_deform`, else
+    `--model config`, any registry name), a fresh optimizer, the path's LR
+    schedule (2 epochs of 2 batches)."""
+    factory = main_path2d.CONFIGS.get(config, functools.partial(build_model_2d, config))
     trainer = Trainer2D(factory(NUM_CLASSES, img_size=img, seed=seed, device=device),
                         out_dir, None, max_epochs=EPOCHS, iterations_per_epoch=TRAIN_BATCHES)
     trainer.initialize()

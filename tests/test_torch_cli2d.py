@@ -9,7 +9,8 @@ and its MaxViT backbone loader against the JAX package's.
   and its NIfTI predictions read back;
 - `train_skin.main --evaluate` on 224²-style npy data at 64²: the
   best-validation checkpoint and finite test metrics;
-- `--model` (the 2D zoo) raises `NotImplementedError` in the three CLIs;
+- an unknown `--model` name raises `ValueError` in the three CLIs (the
+  zoo's names run in `test_torch_zoo_transunet.py`);
 - `convert.backbone.load_maxvit_backbone` against JAX's
   `load_maxvit_backbone` on a `.pth` written from a port encoder (bare
   timm keys, a `backbone.` or `backbone.backbone.` prefix, a
@@ -104,9 +105,9 @@ def test_train_skin_cli_evaluates_the_best_checkpoint(tmp_path):
     (test_synapse2d.main, ["--volume_path", "x", "--list_dir", "y", "--output_dir", "z"]),
     (train_skin.main, ["--root_path", "x"])], ids=["train_synapse2d", "test_synapse2d",
                                                    "train_skin"])
-def test_the_2d_zoo_is_not_ported(main, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        main(argv + ["--model", "daeformer", "--device", "cpu"])
+def test_an_unknown_model_name_raises(main, argv):
+    with pytest.raises(ValueError, match="unknown 2D model 'no_such_net'"):
+        main(argv + ["--model", "no_such_net", "--device", "cpu"])
 
 
 @pytest.fixture(scope="module")

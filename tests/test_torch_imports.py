@@ -42,9 +42,12 @@ def test_port_modules_are_listed():
                  "cli.run_training", "cli.train_pancreas", "trainer_path",
                  "data.synapse2d", "data.skin", "evaluation.skin_eval",
                  "training.trainer2d", "convert.backbone", "cli.train_synapse2d",
-                 "cli.test_synapse2d", "cli.train_skin", "trainer2d_path"):
+                 "cli.test_synapse2d", "cli.train_skin", "trainer2d_path",
+                 "nn.segformer", "models.daeformer", "models.dae_lka", "models.biformer",
+                 "models.swinunet", "models.mvit", "models.stvit", "models.dat_lka",
+                 "models.transunet", "models.hiformer", "models.registry"):
         assert f"deformablelka_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 69
+    assert len(MODULES) >= 80
 
 
 @pytest.mark.parametrize("names", [MODULES, ["chip_smoke"]],

@@ -492,7 +492,7 @@ def test_2d_block_gradients_on_the_card_match_the_plain_path(cuda, block):
         _close(got[name], ref[name])
 
 
-@pytest.mark.parametrize("config", list(main_path2d.CONFIGS))
+@pytest.mark.parametrize("config", main_path2d.FLAGSHIP)
 def test_2d_models_on_the_card_match_the_cpu_and_count_launches(cuda, config):
     gpu, _ = main_path2d.build(config, seed=0, img_size=64)
     cpu, _ = main_path2d.build(config, seed=0, device="cpu", img_size=64)

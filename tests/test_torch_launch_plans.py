@@ -5,7 +5,10 @@ A plan is a pure function of the shape: the channel tile, the spatial
 split, the vector width and the shared memory of each block, and the
 grid. It is checked at every site shape of its kernel (the 3D deform conv
 and the 3D LKA chain at the four stage shapes, batch 8 for inference and 2
-for training; the deform conv's backward at the four stage shapes, batch
+for training; the 2D chain also at DAE-LKA's decoder shapes, 28²×320
+and 56²×128, batch 24, each zoo model's chain sites found by a forward of
+the registry's full-width model on the meta device, against the launch
+tables of `main_path2d` and `trainer2d_path`; the deform conv's backward at the four stage shapes, batch
 2; the Pancreas model's four stage shapes at batch 2, as its trainer runs
 them, for both deform kernels and the chain; the three 2D decoder shapes
 at batch 24, the 2D deform conv and its backward at k5 and k7 dil 3 on
@@ -24,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+from deformablelka_tpu_torch import main_path2d, trainer2d_path
+from deformablelka_tpu_torch.models.registry import build_model_2d
 from deformablelka_tpu_torch.ops import kernels
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d, deform_dw_conv2d_backward
 from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated
@@ -47,7 +52,10 @@ CHAIN3D_SITES = [(B, S, S, S, C) for B in (8, 2) for S, C in STAGES_3D]
 CHAIN3D_TESTS = [(1, 5, 13, 7, 3), (2, 20, 11, 30, 6), (1, 7, 40, 24, 8),
                  (1, 9, 50, 12, 5), (1, 4, 5, 6, 8), (2, 4, 4, 4, 8),
                  *[(2, S, S, S, C) for S, C in PANCREAS_STAGES]]
-CHAIN_SITES = [(24, 14, 14, 384), (24, 28, 28, 192), (24, 56, 56, 96)]
+# the LKA Baseline's decoder shapes (also MViT-, DAT- and STViT-LKA's),
+# then DAE-LKA's
+CHAIN_SITES = [(24, 14, 14, 384), (24, 28, 28, 192), (24, 56, 56, 96),
+               (24, 28, 28, 320), (24, 56, 56, 128)]
 CHAIN_TESTS = [(1, 5, 7, 3), (2, 20, 31, 6), (1, 100, 90, 2), (1, 200, 200, 1),
                (2, 33, 10, 12), (2, 64, 64, 96), (4, 56, 56, 96), (2, 14, 12, 32)]
 DW_SITES = [(8, 8, 8, 8, 128, 5, 3), (8, 4, 4, 4, 256, 3, 2)]
@@ -334,6 +342,32 @@ def test_dwconv3d_plan(shape):
     if shape in DW_SITES:
         assert math.prod(plan.grid) >= SMS
         assert plan.vec == 4
+
+
+@pytest.mark.parametrize("name", main_path2d.ZOO)
+def test_zoo_chain_sites_match_the_launch_tables(name, monkeypatch):
+    """A batch-24 forward of the zoo's full-width model on the meta device
+    (shapes only): its `dw_chain2d` calls are `LAUNCHES_PER_FORWARD`'s and
+    `LAUNCHES_PER_STEP`'s count (the chain's backward launches nothing), at
+    chain sites checked above."""
+    calls, real = [], kernels.dw_chain2d
+
+    def spy(x, *args):
+        calls.append(tuple(x.shape))
+        return real(x, *args)
+
+    monkeypatch.setattr(kernels, "dw_chain2d", spy)
+    model = build_model_2d(name, 9, 224, device="cpu").to("meta")
+    with torch.no_grad():
+        y = model(torch.zeros(24, 224, 224, 1, device="meta"))
+    assert tuple(y.shape) == (24, 224, 224, 9)
+    want = main_path2d.LAUNCHES_PER_FORWARD[name]
+    assert len(calls) == want["dw_chain2d"] and want["deform_dw_conv2d"] == 0
+    step = trainer2d_path.LAUNCHES_PER_STEP[name]
+    assert step == {n: len(calls) if n == "dw_chain2d" else 0 for n in step}
+    assert set(calls) <= set(CHAIN_SITES)
+    assert len(calls) == {"dae_lka": 4, "mvit_lka": 6, "dat_lka": 6,
+                          "stvit_lka": 6}.get(name, 0)
 
 
 def test_plans_raise_where_nothing_fits():

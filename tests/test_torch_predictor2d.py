@@ -83,7 +83,7 @@ def test_latency_harness_runs_on_the_cpu(baseline):
     assert mean > 0 and std >= 0
 
 
-@pytest.mark.parametrize("config", list(main_path2d.CONFIGS))
+@pytest.mark.parametrize("config", main_path2d.FLAGSHIP)
 def test_2d_path_builds_and_predicts_on_the_cpu(config):
     model, predictor = main_path2d.build(config, seed=0, device="cpu", img_size=IMG)
     image = main_path2d.case(seed=0, shape=(3, 80, 72))
