@@ -207,7 +207,28 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    3e-3 / 1e-5 for dat_lka, 4e-3 / 3e-5 for mvit_lka: over three times
    the floors `grad_floor.py --two_d --model NAME` measures; a tensor
    whose update is rounding noise, an exactly zero gradient on a zero
-   parameter, held by the whole only; the gradients printed beside).
+   parameter, held by the whole only; the gradients printed beside);
+23. the Pancreas baselines and nnUNet's 2D GenericUNet (`baselines_path.py`),
+   which run no hand kernel: for each of VNet, the ResNet34 seg net and
+   UNETR (`cli/_pancreas_models.build_pancreas_model`), at narrow widths
+   (`BASELINE_NARROW`, 32³, B=2, as the CPU tests hold them against the
+   JAX package) the card against the CPU within 1e-3·max(1, max|CPU|);
+   at full width from the CLI's seed `TrainerPancreas` for 6 iterations
+   at 96³, B=2, labeled_bs 1 (s/iteration, the median after the first;
+   peak device memory; finite losses) and the Pancreas tester with the
+   trained model on the 128×128×80 case, stride 16 (s/case with the
+   host's metrics, finite, Dice in [0, 1]); then GenericUNet: three CT-like
+   raw NIfTI cases (64×288×288) planned and preprocessed
+   (`plan_and_preprocess`, host seconds), one step of a narrow GenericUNet
+   (base 8, cap 32) on the 2D CLI's first batch on the card against the
+   CPU (the loss within 1e-5, each tensor's update and the whole within
+   three times the CPU floor with the image × (1 + 1e-7), at least 1.5e-2
+   / 1e-3; the conv biases under instance norms, whose gradient is exactly
+   zero, by the whole only), and `run_training 2d` on the planned folder at the CLI's
+   defaults (256², B=2; 1 epoch of 2 batches and one validation batch):
+   s/step, host seconds of loading and augmenting a batch, peak device
+   memory, finite losses. Every hand-kernel count is 0 on every one of
+   these paths (a launch would mean a D-LKA module in a baseline).
 
 Phase 19 runs right after phase 8, the others in order. Then one JSON
 line of the kernels' numbers and, last, the contract line {"ok": true,
@@ -229,8 +250,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deformablelka_tpu_torch import (case_path, main_path, main_path2d, native,
-                                     train_path, trainer2d_path, trainer_path)
+from deformablelka_tpu_torch import (baselines_path, case_path, main_path, main_path2d,
+                                     native, train_path, trainer2d_path, trainer_path)
 from deformablelka_tpu_torch.cli import (predict_simple, run_training, test_synapse2d,
                                          train_skin, train_synapse2d)
 from deformablelka_tpu_torch.grad_floor import NOISE_SHARE, plain_versions
@@ -246,9 +267,11 @@ from deformablelka_tpu_torch.main_path import (BLOCKS, LAUNCHES_PER_FORWARD, PAT
 from deformablelka_tpu_torch.models import (BiDAEFormer, DAEFormer, DAELKAFormer,
                                             DATLKAFormer, HiFormer, MViTLKAFormer, SegFormer,
                                             SemanticSTViT, STVitLKA, SwinUNet, TransUNet)
-from deformablelka_tpu_torch.models.dlka_former import (dlka_former_acdc,
+from deformablelka_tpu_torch.models.dlka_former import (_build, dlka_former_acdc,
                                                         dlka_former_synapse,
                                                         dlka_net_pancreas)
+from deformablelka_tpu_torch.models.generic_unet import GenericUNet
+from deformablelka_tpu_torch.models.pancreas_baselines import UNETR, Resnet34Seg, VNet
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d
 from deformablelka_tpu_torch.nn.layers import init_parameters
 from deformablelka_tpu_torch.nn.lka2d import DeformConv
@@ -2116,6 +2139,183 @@ def phase_2d_zoo() -> dict:
                 n: sum(c[n] for c in step_launches.values()) for n in kernels.launch_counts()}}
 
 
+# the baselines' narrow widths for phase 23's card-against-CPU forward (32³,
+# as tests/test_torch_pancreas_baselines.py holds them against the JAX package)
+BASELINE_NARROW = {
+    "vnet": lambda: VNet(n_classes=2, n_filters=4),
+    "resnet34": lambda: Resnet34Seg(n_classes=2),
+    "unetr": lambda: UNETR(n_classes=2, img_size=(32, 32, 32), hidden=48, heads=4,
+                           mlp_dim=96, feature_size=4),
+}
+GENERIC_UNET_NARROW = dict(base_num_features=8, max_features=32)
+
+
+def _no_launches(counts: dict) -> bool:
+    return not any(counts.values())
+
+
+def _baseline_card_vs_cpu(name) -> tuple:
+    """The narrow baseline on the card against itself on the CPU, batch 2."""
+    model = BASELINE_NARROW[name]()
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.eval()
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, 32, 32, 32, 1).astype(np.float32))
+    with torch.no_grad():
+        ref = model(x)
+        kernels.reset_launches()
+        got = model.cuda()(x.cuda()).cpu()
+    return (got - ref).abs().max().item() / max(1.0, ref.abs().max().item()), \
+        bool(torch.isfinite(got).all()), kernels.launch_counts()
+
+
+def _generic_unet_step(batch, device, scale=1.0) -> tuple:
+    """(loss, update p' - p per tensor on the host, launches) of one
+    `make_ds_train_step` of the narrow 2D GenericUNet from seed 0 on
+    `batch`, the image × `scale`."""
+    model = _build(GenericUNet(len(baselines_path.RAW_LABELS), ndim=2, num_pool=5,
+                               **GENERIC_UNET_NARROW), 0, device)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    lr = poly_lr(0, 1000, 1e-2)
+    step = make_ds_train_step(model, make_sgd(model.parameters(), lr))
+    b = {"data": torch.from_numpy(batch["data"] * np.float32(scale)).to(device),
+         "target": [torch.from_numpy(t).to(device).long() for t in batch["target"]]}
+    kernels.reset_launches()
+    loss = float(step(b, lr)["loss"])
+    return loss, {n: (p.detach() - before[n]).cpu()
+                  for n, p in model.named_parameters()}, kernels.launch_counts()
+
+
+def _pancreas_baseline(name) -> dict:
+    """Phase 23's Pancreas part for one baseline; its launches by path."""
+    err, finite, launches = _baseline_card_vs_cpu(name)
+    print(f"phase 23 {name} narrow, 32^3 B=2: card vs CPU max|Δ|/max(1, max|CPU|) "
+          f"{err:.3e} (tol {ZOO_CPU_RTOL}), finite {finite}, launches {launches}", flush=True)
+    if not (err <= ZOO_CPU_RTOL and finite and _no_launches(launches)):
+        fail(f"{name} on the card disagrees with the CPU (or launched a hand kernel)")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, record = trainer_path.train_pancreas(Path(tmp), model=name)
+        peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    secs = [s for s, _, _ in record]
+    losses = [l for _, l, _ in record]
+    per_iteration = [c for _, _, c in record]
+    print(f"phase 23 {name} ({n_params / 1e6:.2f} M parameters) TrainerPancreas "
+          f"B={trainer_path.BATCH} patch {case_path.PANCREAS_PATCH}, labeled_bs "
+          f"{trainer_path.PANCREAS_LABELED}, {len(record)} iterations: "
+          f"{float(np.median(secs[1:])):.4f} s/iteration (median after the first; "
+          f"{_seconds(secs)}), peak device memory {peak / 2**30:.3f} GiB; losses "
+          f"{[round(l, 6) for l in losses]}; launches per iteration {per_iteration[0]}",
+          flush=True)
+    if not all(_no_launches(c) for c in per_iteration):
+        fail(f"{name}'s training launched a hand kernel: {per_iteration}")
+    if not np.all(np.isfinite(losses)):
+        fail(f"a {name} training loss is not finite")
+    sw = pancreas.make_pancreas_sliding_window(
+        trainer.model.eval(), patch_size=case_path.PANCREAS_PATCH,
+        stride_xy=case_path.PANCREAS_STRIDE, stride_z=case_path.PANCREAS_STRIDE)
+    case = case_path.pancreas_case(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    avg = pancreas.test_all_case(sw, [case], verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tester = kernels.launch_counts()
+    print(f"phase 23 {name} Pancreas tester, trained model, {case[1].shape} stride "
+          f"{case_path.PANCREAS_STRIDE}: {wall:.3f} s/case with the host's metrics, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; (dice, "
+          f"jaccard, hd95, asd) {avg.tolist()}; launches {tester}", flush=True)
+    if not _no_launches(tester):
+        fail(f"{name}'s tester launched a hand kernel: {tester}")
+    if not (np.all(np.isfinite(avg)) and 0.0 <= avg[0] <= 1.0):
+        fail(f"bad {name} Pancreas metrics {avg}")
+    del trainer, sw
+    torch.cuda.empty_cache()
+    return {n: sum(c[n] for c in per_iteration) + tester[n] for n in tester}
+
+
+def _generic_unet_2d() -> dict:
+    """Phase 23's GenericUNet part: raw data → plans → `run_training 2d`;
+    its launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        baselines_path.write_raw_task(tmp / "raw")
+        plans, plan_secs = baselines_path.plan(tmp / "raw", tmp / "pre")
+        shapes = {p.stem: np.load(p)["data"].shape for p in sorted((tmp / "pre").glob("*.npz"))}
+        print(f"phase 23 plan_and_preprocess: 3 raw cases {baselines_path.RAW_SHAPE} at "
+              f"spacings {baselines_path.RAW_SPACINGS}: {plan_secs:.3f} s of host; stage 0 "
+              f"{plans['plans_per_stage'][0]}; preprocessed {shapes}", flush=True)
+        batch = baselines_path.synchronous_batch_2d(tmp / "pre")
+        loss_k, upd_k, launches = _generic_unet_step(batch, "cuda")
+        loss_c, upd_c, _ = _generic_unet_step(batch, "cpu")
+        _, upd_f, _ = _generic_unet_step(batch, "cpu", 1 + 1e-7)
+        _, _, whole = grad_rel(upd_k, upd_c)
+        _, _, f_whole = grad_rel(upd_f, upd_c)
+        # a conv's bias under an instance norm has an exactly zero gradient:
+        # its update is the weight decay plus rounding noise, held by the
+        # whole update only
+        held = lambda upd: {n: u for n, u in upd.items() if not n.endswith(".conv.bias")}
+        worst, worst_rel, _ = grad_rel(held(upd_k), held(upd_c))
+        f_worst, f_rel, _ = grad_rel(held(upd_f), held(upd_c))
+        tensor_gate = max(GRAD_TENSOR_RTOL, 3 * f_rel)
+        whole_gate = max(GRAD_RTOL, 3 * f_whole)
+        print(f"phase 23 GenericUNet 2D narrow ({GENERIC_UNET_NARROW}) step on the CLI's "
+              f"first batch {batch['data'].shape}: loss card {loss_k:.7f} CPU {loss_c:.7f} "
+              f"(rtol {LOSS_RTOL}); update p' - p over {len(held(upd_c))} of {len(upd_c)} tensors "
+              f"(the biases under instance norms held by the whole): worst ‖Δu‖/‖u‖ "
+              f"{worst_rel:.3e} ({worst}; max {tensor_gate:.3e}), whole {whole:.3e} (max "
+              f"{whole_gate:.3e}); CPU floor, image x (1 + 1e-7): {f_rel:.3e} ({f_worst}), "
+              f"whole {f_whole:.3e}; launches {launches}", flush=True)
+        if abs(loss_k - loss_c) > LOSS_RTOL * abs(loss_c):
+            fail("GenericUNet's loss on the card disagrees with the CPU")
+        if worst_rel > tensor_gate or whole > whole_gate:
+            fail(f"GenericUNet's update on the card disagrees with the CPU ({worst})")
+        if not _no_launches(launches):
+            fail(f"GenericUNet's step launched a hand kernel: {launches}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with trainer_path.Recorder() as rec:
+            trainer = run_training.main(baselines_path.run_training_2d_argv(
+                tmp / "pre", tmp / "out"))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        t = rec.times
+        steps, vals = rec.launches["step"], rec.launches["val_batch"]
+        losses = trainer.all_tr_losses + trainer.all_val_losses
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        print(f"phase 23 run_training 2d, GenericUNet ({n_params / 1e6:.2f} M parameters), "
+              f"patch {baselines_path.PATCH_2D} B=2, 1 epoch of {len(steps)} batches + "
+              f"{len(vals)} validation batch: steps {_seconds(t['step'])} s "
+              f"({float(np.median(t['step'][1:])):.4f} s/step after the first), validation "
+              f"{_seconds(t['val_batch'])} s, queue waits {_seconds(t['wait'])} s, host "
+              f"seconds per batch: load {_seconds(t['load'])}, augment "
+              f"{_seconds(t['augment'])}; {wall:.3f} s with the CLI's set-up; peak device "
+              f"memory {peak / 2**30:.3f} GiB; losses {losses}; launches per step "
+              f"{steps[0]}, per validation batch {vals[0]}", flush=True)
+        if not all(_no_launches(c) for c in steps + vals):
+            fail(f"run_training 2d launched a hand kernel: {steps} {vals}")
+        if len(steps) != baselines_path.BATCHES_2D or not np.all(np.isfinite(losses)):
+            fail(f"run_training 2d: {len(steps)} steps, losses {losses}")
+        del trainer
+    torch.cuda.empty_cache()
+    return {n: sum(c[n] for c in steps + vals) for n in steps[0]}
+
+
+def phase_baselines() -> dict:
+    """Phase 23: the Pancreas baselines and GenericUNet 2D; their launches
+    by path (all 0)."""
+    t_start = time.perf_counter()
+    out = {f"Pancreas {name}, 6 iterations + tester":
+           _pancreas_baseline(name) for name in baselines_path.BASELINES}
+    out["run_training 2d, 2 + 1 batches"] = _generic_unet_2d()
+    print(f"phase 23: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return out
+
+
 def kernel_line(rows, launches):
     """rows[name]: the per-stage measurements; launches[name]: counts by path."""
     sources = {"deform_conv3d": ("deformablelka_tpu_torch/csrc/deform3d.cu",
@@ -2206,6 +2406,7 @@ def main() -> int:
     per_step_2d, _ = phase_2d_train_step()
     launches_synapse2d, launches_baseline2d, launches_skin, launches_zoo_clis = phase_2d_clis()
     launches_zoo = phase_2d_zoo()
+    launches_baselines = phase_baselines()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernel_line(rows, {
         "inference main path": launches, "training path, 3 steps": train_launches,
@@ -2221,7 +2422,7 @@ def main() -> int:
         "train_synapse2d, 2 epochs of 2 batches": launches_synapse2d,
         "LKA Baseline Trainer2D, 3 steps": launches_baseline2d,
         "train_skin, 2 epochs of 2 batches": launches_skin,
-        **launches_zoo_clis, **launches_zoo})), flush=True)
+        **launches_zoo_clis, **launches_zoo, **launches_baselines})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

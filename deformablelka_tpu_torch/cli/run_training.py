@@ -1,8 +1,8 @@
-"""3D training CLI (the port's `deformablelka_tpu/cli/run_training.py`).
+"""3D and 2D training CLI (the port's `deformablelka_tpu/cli/run_training.py`).
 
 Mirrors upstream's run/run_training.py:42-101:
 
-    python -m deformablelka_tpu_torch.cli.run_training 3d_fullres
+    python -m deformablelka_tpu_torch.cli.run_training 3d_fullres|2d
         d_lka_former_trainer_synapse TASK FOLD --preprocessed_folder PRE
         [--output_folder OUT] [-c] [-val] [--trans_block X]
         [--patch_size 64 128 128] [--da moreDA|insaneDA|noDA]
@@ -18,9 +18,15 @@ in one batch-8 forward) from the final (else best, else latest)
 checkpoint and writes `validation/summary.json` and
 `validation/postprocessing.json`. Runs on the card unless `--device cpu`,
 in float32 (the JAX CLI's `-val` casts the tile to bfloat16; the port's
-kernels take float32 only). `network 2d` (nnUNet's GenericUNet) is not
-ported and raises. `main` returns the trainer; it stops the augmenters'
-threads before it returns.
+kernels take float32 only). `main` returns the trainer; it stops the
+augmenters' threads before it returns.
+
+`network 2d` is nnUNet's `2d` configuration on the same preprocessed
+cases: `GenericUNet(num_classes, ndim=2, num_pool=5, do_ds=True)` on
+random slices (`DataLoader2D`) at the last two axes of `--patch_size`
+(else 256²), mirrored in-plane only, deep supervision at 1, 1/2 and 1/4.
+`2d` with `-val` raises `NotImplementedError`: the JAX CLI's validation
+runs the 3D sliding window with the 2D patch and fails there too.
 """
 
 from __future__ import annotations
@@ -70,6 +76,9 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+DS_SCALES_2D = [[1, 1], [0.5, 0.5], [0.25, 0.25]]  # GenericUNet's heads
+
+
 def deep_supervision_scales(stem):
     """The DS targets' scales: the model's heads are at the patch, at
     patch/stem (out2, on dec1) and at patch/(2·stem) (out3, on dec2)."""
@@ -78,22 +87,26 @@ def deep_supervision_scales(stem):
 
 def make_pipeline(dataset, patch, batch_size, seed, train, da="moreDA",
                   ds_scales=None):
-    """(loader, transform) of one generator: `DataLoader3D` at the
-    enlarged patch (±30° rotations, scaling 0.7-1.4) for training, at the
-    patch for validation, and the `da` augmentation (validation: no
-    mirroring, rotation, scaling, elastic or intensity change), seeded
-    with `seed` and `seed + 1`."""
+    """(loader, transform) of one generator: `DataLoader3D` (a 2D patch:
+    `DataLoader2D`) at the enlarged patch (±30° rotations, scaling
+    0.7-1.4) for training, at the patch for validation, and the `da`
+    augmentation (validation: no mirroring, rotation, scaling, elastic or
+    intensity change; 2D: never the channel axis), seeded with `seed` and
+    `seed + 1`."""
     from deformablelka_tpu_torch.data.augment import (
         get_augmentation, get_patch_size)
-    from deformablelka_tpu_torch.data.dataset import DataLoader3D
+    from deformablelka_tpu_torch.data.dataset import DataLoader2D, DataLoader3D
 
     rot = (-np.pi / 6, np.pi / 6)
     enlarged = get_patch_size(patch, rot, rot, rot, (0.7, 1.4))
-    loader = DataLoader3D(dataset, enlarged if train else patch, batch_size,
-                          rng=np.random.RandomState(seed))
+    loader_cls = DataLoader2D if len(patch) == 2 else DataLoader3D
+    loader = loader_cls(dataset, enlarged if train else patch, batch_size,
+                        rng=np.random.RandomState(seed))
     overrides = ({} if train else
                  dict(do_mirror=False, p_rot=0.0, p_scale=0.0,
                       do_elastic=False, do_intensity=False))
+    if len(patch) == 2:
+        overrides["mirror_axes"] = (0, 1)  # data is (B, H, W, C)
     aug = get_augmentation(da if train else "moreDA", patch,
                            deep_supervision_scales=ds_scales,
                            rng=np.random.RandomState(seed + 1), **overrides)
@@ -117,23 +130,31 @@ def main(argv=None):
     from deformablelka_tpu_torch.data.augment import ThreadedAugmenter
     from deformablelka_tpu_torch.data.dataset import load_dataset, unpack_dataset
     from deformablelka_tpu_torch.models.dlka_former import (
-        dlka_former_acdc, dlka_former_synapse)
+        _build, dlka_former_acdc, dlka_former_synapse)
+    from deformablelka_tpu_torch.models.generic_unet import GenericUNet
     from deformablelka_tpu_torch.training.trainer3d import Trainer3D
 
-    if args.network == "2d":
+    is_2d = args.network == "2d"
+    if is_2d and args.validation_only:
         raise NotImplementedError(
-            "network '2d': nnUNet's GenericUNet is not ported to "
-            "deformablelka_tpu_torch yet; only the 3D D-LKA Former trains")
+            "network '2d' with -val: the validation's sliding window is 3D; "
+            "the JAX package's CLI fails on this combination as well")
     is_acdc = "acdc" in args.network_trainer
     num_classes = args.num_classes or (4 if is_acdc else 14)
-    patch = tuple(args.patch_size) if args.patch_size else (
-        (16, 160, 160) if is_acdc else (64, 128, 128))
-    make_model = dlka_former_acdc if is_acdc else dlka_former_synapse
-    # remat: recompute each block's forward in the backward pass instead
-    # of keeping its activations (one extra forward per step)
-    model = make_model(num_classes, do_ds=True, img_size=patch,
-                       remat=not args.no_remat, trans_block=args.trans_block,
-                       device=args.device)
+    if is_2d:
+        # nnUNet's `2d` configuration: GenericUNet on random slices
+        patch = tuple(args.patch_size)[-2:] if args.patch_size else (256, 256)
+        model = _build(GenericUNet(num_classes, ndim=2, num_pool=5, do_ds=True),
+                       0, args.device)
+    else:
+        patch = tuple(args.patch_size) if args.patch_size else (
+            (16, 160, 160) if is_acdc else (64, 128, 128))
+        make_model = dlka_former_acdc if is_acdc else dlka_former_synapse
+        # remat: recompute each block's forward in the backward pass
+        # instead of keeping its activations (one extra forward per step)
+        model = make_model(num_classes, do_ds=True, img_size=patch,
+                           remat=not args.no_remat, trans_block=args.trans_block,
+                           device=args.device)
 
     # upstream's paths.py: the folders from the environment by default
     pre_folder = (args.preprocessed_folder
@@ -145,7 +166,8 @@ def main(argv=None):
                   / args.network_trainer / f"fold_{args.fold}")
     unpack_dataset(pre_folder)
     tr_ds, vl_ds = split_cases(load_dataset(pre_folder))
-    ds_scales = deep_supervision_scales((1, 4, 4) if is_acdc else (2, 4, 4))
+    ds_scales = (DS_SCALES_2D if is_2d else
+                 deep_supervision_scales((1, 4, 4) if is_acdc else (2, 4, 4)))
 
     def make_gen(ds, seed, train):
         loader, transform = make_pipeline(ds, patch, args.batch_size, seed,

@@ -9,6 +9,7 @@ report mean (dice, jaccard, hd95, asd):
 
     python -m deformablelka_tpu_torch.cli.test_pancreas --root_path BASE
         --model_dir RUN [--checkpoint d_lka_former_iter_6000]
+        [--model dlka_net|vnet|resnet34|unetr]
         [--device cuda|cpu]
 
 The model runs in float32 on the card unless `--device cpu`. The JAX CLI
@@ -38,8 +39,8 @@ def parse_args(argv=None):
                     default="TransformerBlock_3D_single_deform_LKA")
     ap.add_argument("--model", default="dlka_net",
                     choices=["dlka_net", *BASELINES],
-                    help="network: D-LKA Net (the baselines are not "
-                         "ported yet and raise)")
+                    help="network: D-LKA Net or a baseline (vnet, "
+                         "resnet34/resseg3d, unetr/unetr_mini)")
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: cuda (default) or cpu")
     return ap.parse_args(argv)

@@ -10,8 +10,9 @@ on the first `--labeled_bs`, 6000 iterations, the checkpoint
     python -m deformablelka_tpu_torch.cli.train_pancreas --root_path BASE
         [--output_dir ./model] [--max_iterations 6000] [--device cuda|cpu]
 
-Trains on the card unless `--device cpu`, in float32. The Pancreas
-baselines (`--model vnet` …) are not ported yet and raise.
+Trains on the card unless `--device cpu`, in float32. `--model vnet`,
+`resnet34` (`resseg3d`) or `unetr` (`unetr_mini`) trains a Pancreas
+baseline instead (`cli/_pancreas_models.py`).
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ def parse_args(argv=None):
                     default="TransformerBlock_3D_single_deform_LKA")
     ap.add_argument("--model", default="dlka_net",
                     choices=["dlka_net", *BASELINES],
-                    help="network: D-LKA Net (the baselines are not "
-                         "ported yet and raise)")
+                    help="network: D-LKA Net or a baseline (vnet, "
+                         "resnet34/resseg3d, unetr/unetr_mini)")
     ap.add_argument("--device", default="cuda",
                     help="where the model trains: cuda (default) or cpu")
     return ap.parse_args(argv)

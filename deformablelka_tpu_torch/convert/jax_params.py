@@ -9,7 +9,9 @@ inverse of `deformablelka_tpu.convert.torch_loader.convert_dlka_former`,
 `convert_maxvit_dlka` and the converters of the 2D zoo (`convert_daeformer`,
 `convert_daelka`, `convert_bidae`, `convert_swinunet`, `convert_mvitlka`,
 `convert_datlka`, `convert_stvitlka`, `convert_semantic_stvit`,
-`convert_segformer`, `convert_transunet`, `convert_hiformer`):
+`convert_segformer`, `convert_transunet`, `convert_hiformer`), of the
+Pancreas baselines (`convert_vnet`, `convert_resnet34`, `convert_unetr`)
+and of `convert_generic_unet`:
 
 - module paths: the JAX names that differ from upstream's torch names are
   renamed. The 2D zoo's modules carry their own renames, `jax_renames`
@@ -36,7 +38,9 @@ inverse of `deformablelka_tpu.convert.torch_loader.convert_dlka_former`,
   batch stats `mean`/`var` → `running_mean`/`running_var`;
 - layouts: conv kernels (k..., Cin/g, Cout) → (Cout, Cin/g, k...),
   transposed-conv kernels (kd, kh, kw, Cin, Cout) → (Cin, Cout, kd, kh,
-  kw), linear (Cin, Cout) → (Cout, Cin), and to a torch 1×1 conv (DAT's
+  kw), and flipped in space where the JAX layer is flax's
+  `nn.ConvTranspose` (a `StrideConvTranspose` here: the VNet family's
+  and GenericUNet's up-convs, 2D or 3D), linear (Cin, Cout) → (Cout, Cin), and to a torch 1×1 conv (DAT's
   `proj_k`, `proj_v`) (Cout, Cin, 1, 1). A value whose shape is not its
   parameter's raises.
 """
@@ -144,6 +148,11 @@ def _resolve(module: nn.Module, parts: tuple) -> Tuple[list, nn.Module, tuple]:
 
 
 def _layout(owner: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
+    if leaf == "weight" and getattr(owner, "jax_kernel_flipped", False):
+        # a flax ConvTranspose: (k..., Cin, Cout), flipped in space
+        nd = arr.ndim - 2
+        w = arr.transpose(nd, nd + 1, *range(nd))
+        return np.ascontiguousarray(w[(slice(None),) * 2 + (slice(None, None, -1),) * nd])
     if leaf == "weight" and arr.ndim == 5:
         if isinstance(owner, ConvTranspose):
             return arr.transpose(3, 4, 0, 1, 2)

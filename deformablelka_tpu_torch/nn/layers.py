@@ -6,6 +6,7 @@ and `bias` and laid out as torch's own layers lay them out:
   Conv2d.weight        : (Cout, Cin // groups, kh, kw)
   Conv3d.weight        : (Cout, Cin // groups, kd, kh, kw)
   ConvTranspose.weight : (Cin, Cout, kd, kh, kw)
+  StrideConvTranspose.weight : (Cin, Cout, *stride), 2D or 3D
   Linear.weight        : (Cout, Cin)
 
 Initialisation draws from the same distributions as the JAX package
@@ -115,6 +116,39 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x):
         return C.conv_transpose(x, self.weight, self.bias, stride=self.stride)
+
+
+class StrideConvTranspose(nn.Module):
+    """Transposed 2D or 3D conv whose kernel is its stride (no overlap, no
+    padding), as torch's `ConvTranspose{2,3}d(Cin, Cout, s, stride=s)`:
+    (B, *S, Cin) → (B, *S·s, Cout). Its JAX counterpart is flax's
+    `nn.ConvTranspose`, which correlates where torch convolves, so the JAX
+    kernel is this weight flipped in space (`jax_kernel_flipped`, read by
+    `convert/jax_params.py`)."""
+
+    jax_kernel_flipped = True
+
+    def __init__(self, in_channels: int, out_channels: int, stride,
+                 ndim: int = 3, bias: bool = True):
+        super().__init__()
+        self.stride = C._tuple(stride, ndim)
+        self.weight = nn.Parameter(
+            torch.empty(in_channels, out_channels, *self.stride))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def reset_parameters(self, generator=None):
+        bound = 1.0 / math.sqrt(math.prod(self.weight.shape[2:])
+                                * self.weight.shape[0])
+        _uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, bound, generator)
+
+    def forward(self, x):
+        if len(self.stride) == 3:
+            return C.to_ndhwc(F.conv_transpose3d(
+                C.to_ncdhw(x), self.weight, self.bias, self.stride))
+        return C.to_nhwc(F.conv_transpose2d(
+            C.to_nchw(x), self.weight, self.bias, self.stride))
 
 
 class Linear(nn.Module):

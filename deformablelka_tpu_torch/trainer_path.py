@@ -207,18 +207,21 @@ def pancreas_loader(seed: int = 0, shape=case_path.PANCREAS_VOLUME,
     return loader
 
 
-def pancreas_model(patch=case_path.PANCREAS_PATCH, device="cuda"):
-    """`dlka_net_pancreas` as `cli/train_pancreas.py` builds it."""
-    return build_pancreas_model("dlka_net", "TransformerBlock_3D_single_deform_LKA",
+def pancreas_model(patch=case_path.PANCREAS_PATCH, device="cuda", model="dlka_net"):
+    """The Pancreas model `model` (`dlka_net_pancreas` unless asked: a
+    baseline, `vnet`, `resnet34` or `unetr`) as `cli/train_pancreas.py`
+    builds it."""
+    return build_pancreas_model(model, "TransformerBlock_3D_single_deform_LKA",
                                 patch, device=device, seed=PANCREAS_SEED)
 
 
 def train_pancreas(out_dir, iterations: int = PANCREAS_ITERATIONS,
                    patch=case_path.PANCREAS_PATCH, shape=case_path.PANCREAS_VOLUME,
-                   device="cuda"):
+                   device="cuda", model="dlka_net"):
     """(trainer, [(seconds, loss, launches) per iteration]): the Pancreas
-    trainer for `iterations`, its checkpoint written to `out_dir`."""
-    trainer = TrainerPancreas(pancreas_model(patch, device), out_dir,
+    trainer of `model` for `iterations`, its checkpoint written to
+    `out_dir`."""
+    trainer = TrainerPancreas(pancreas_model(patch, device, model), out_dir,
                               max_iterations=iterations, batch_size=BATCH,
                               labeled_bs=PANCREAS_LABELED)
     record = []
@@ -238,11 +241,12 @@ def train_pancreas(out_dir, iterations: int = PANCREAS_ITERATIONS,
 
 def test_pancreas_checkpoint(out_dir, iterations: int = PANCREAS_ITERATIONS,
                              patch=case_path.PANCREAS_PATCH,
-                             shape=case_path.PANCREAS_VOLUME, device="cuda"):
+                             shape=case_path.PANCREAS_VOLUME, device="cuda",
+                             model="dlka_net"):
     """The port's Pancreas tester (stride 16, as `cli/test_pancreas.py`)
-    on the trainer's case with the weights of `d_lka_former_iter_<N>`:
-    (dice, jaccard, hd95, asd)."""
-    model = pancreas_model(patch, device)
+    on the trainer's case with the weights of `d_lka_former_iter_<N>` of
+    `model`: (dice, jaccard, hd95, asd)."""
+    model = pancreas_model(patch, device, model)
     state, _ = CheckpointManager(out_dir).load(f"d_lka_former_iter_{iterations}")
     model.load_state_dict(state["model"], strict=True)
     sw = pancreas.make_pancreas_sliding_window(

@@ -45,9 +45,13 @@ def test_port_modules_are_listed():
                  "cli.test_synapse2d", "cli.train_skin", "trainer2d_path",
                  "nn.segformer", "models.daeformer", "models.dae_lka", "models.biformer",
                  "models.swinunet", "models.mvit", "models.stvit", "models.dat_lka",
-                 "models.transunet", "models.hiformer", "models.registry"):
+                 "models.transunet", "models.hiformer", "models.registry",
+                 "models.pancreas_baselines", "models.generic_unet", "data.plans",
+                 "data.sanity_checks", "data.experiment_planning", "data.convert_tasks",
+                 "evaluation.region_based", "evaluation.model_selection", "utils",
+                 "utils.paths", "utils.overlay", "cli.tools", "baselines_path"):
         assert f"deformablelka_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 80
+    assert len(MODULES) >= 94
 
 
 @pytest.mark.parametrize("names", [MODULES, ["chip_smoke"]],

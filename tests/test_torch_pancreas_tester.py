@@ -10,8 +10,9 @@ port by `state_dict_from_jax`). Tolerances: the count-blended
 probabilities at atol 1e-4, rtol 1e-4; the labels exactly; the four mean
 metrics (Dice, Jaccard, HD95, ASD) within 1e-6. Then the port's CLI runs
 the same case from an h5 fold list and a port checkpoint (where h5py
-imports) and must give the same metrics exactly, and naming a Pancreas
-baseline raises.
+imports) and must give the same metrics exactly. Each Pancreas baseline
+name builds the port's model with the JAX registry's structure, and an
+unknown name raises.
 """
 
 import jax
@@ -98,8 +99,19 @@ def test_cli_runs_an_h5_fold(carried, tmp_path):
 
 
 @pytest.mark.parametrize("name", _pancreas_models.BASELINES)
-def test_baselines_are_not_ported(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _pancreas_models.build_pancreas_model(name, BLOCK, PATCH, device="cpu")
+def test_baselines_build_and_an_unknown_name_raises(name):
+    """Each baseline name builds the port's model at full width with the
+    structure of the JAX registry's: every JAX variable (zeros of the
+    shapes `jax.eval_shape` gives) has its tensor of the same shape, and
+    the port has no other."""
+    from deformablelka_tpu.cli import _pancreas_models as jax_models
+
+    model = _pancreas_models.build_pancreas_model(name, BLOCK, PATCH, device="cpu", seed=3)
+    jm = jax_models.build_pancreas_model(name, BLOCK, PATCH)
+    assert type(model).__name__ == type(jm).__name__
+    assert not model.training and all(torch.isfinite(p).all() for p in model.parameters())
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, *PATCH, 1)))
+    zeros = jax.tree_util.tree_map(lambda s: np.broadcast_to(np.float32(0), s.shape), shapes)
+    model.load_state_dict(state_dict_from_jax(zeros, model), strict=True)
     with pytest.raises(KeyError):
         _pancreas_models.build_pancreas_model("unet", BLOCK, PATCH, device="cpu")

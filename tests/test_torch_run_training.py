@@ -12,14 +12,17 @@ JAX package's.
   bookkeeping, the threads stopped. The JAX CLI's run takes about 8
   minutes here; the parity of its parts is held in
   tests/test_torch_trainer3d.py and tests/test_torch_data_train_copies.py.
-- `network 2d` (GenericUNet, not ported) raises.
+- `network 2d`: GenericUNet trains one epoch on 64² slices; `2d` with
+  `-val` raises (its parity with the JAX trainer is held in
+  tests/test_torch_generic_unet.py).
 - `training/cascade.predict_next_stage` against JAX's with the same
   weights (`dlka_former_synapse(do_ds=False)` with the SE block, JAX
   variables from `jax.eval_shape` and seeded numpy): the written
   `<case>_segFromPrevStage.npz` files are equal.
 - `cli/train_pancreas.py` from an h5 fold (h5py), then the port's
   `cli/test_pancreas.py` on the checkpoint it wrote: the metrics equal
-  those of the tester on the trained model; a baseline raises.
+  those of the tester on the trained model; an unknown `--model` is
+  refused.
 """
 
 import json
@@ -119,10 +122,30 @@ def test_cli_trains_validates_and_resumes(folder, tmp_path):
     assert len(resumed.all_tr_losses) == 2 and _stopped(resumed)
 
 
-def test_network_2d_is_not_ported(folder, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run_training.main(["2d", "d_lka_former_trainer_synapse", "Task002_Synapse", "0",
-                           "--preprocessed_folder", str(folder), "--device", "cpu"])
+def test_network_2d_trains_and_refuses_validation(folder, tmp_path):
+    """`2d`: GenericUNet on random 64² slices, deep supervision at 1, 1/2
+    and 1/4; `-val` with `2d` raises (the JAX CLI's fails as well,
+    tests/test_torch_generic_unet.py)."""
+    batches = []
+    train_batch = Trainer3D.train_batch
+
+    def recorded(self, batch):
+        batches.append((batch["data"].shape, [t.shape for t in batch["target"]]))
+        return train_batch(self, batch)
+
+    argv = ["2d", "d_lka_former_trainer_synapse", "Task002_Synapse", "0",
+            "--preprocessed_folder", str(folder), "--output_folder", str(tmp_path),
+            "--patch_size", "1", "64", "64", "--batches_per_epoch", "1",
+            "--val_batches_per_epoch", "1", "--max_epochs", "1", "--device", "cpu"]
+    with mock.patch.object(Trainer3D, "train_batch", recorded):
+        trainer = run_training.main(argv)
+    assert type(trainer.model).__name__ == "GenericUNet"
+    assert batches == [((2, 64, 64, 1), [(2, 64, 64), (2, 32, 32), (2, 16, 16)])]
+    assert trainer.step == 1 and np.isfinite(trainer.all_tr_losses + trainer.all_val_losses).all()
+    out = tmp_path / "d_lka_former_trainer_synapse" / "fold_0" / "ckpt"
+    assert (out / "model_final_checkpoint").is_dir() and _stopped(trainer)
+    with pytest.raises(NotImplementedError, match="-val"):
+        run_training.main([*argv, "-val"])
 
 
 def test_predict_next_stage_matches_jax(tmp_path):
@@ -173,5 +196,5 @@ def test_train_pancreas_cli_from_an_h5_fold_and_the_tester_reads_it(tmp_path):
     np.testing.assert_array_equal(
         avg, tpan.test_all_case(sw, [(name, image, label)], verbose=False))
     assert np.all(np.isfinite(avg))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_cli.main([*common, "--model", "vnet", "--max_iterations", "1"])
+    with pytest.raises(SystemExit):  # argparse refuses a name it does not list
+        train_cli.main([*common, "--model", "unet", "--max_iterations", "1"])
