@@ -228,7 +228,27 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    defaults (256², B=2; 1 epoch of 2 batches and one validation batch):
    s/step, host seconds of loading and augmenting a batch, peak device
    memory, finite losses. Every hand-kernel count is 0 on every one of
-   these paths (a launch would mean a D-LKA module in a baseline).
+   these paths (a launch would mean a D-LKA module in a baseline);
+24. the port of `parallel/`, on a world of one rank (NCCL through a
+   `file://` store, a ("data",) mesh of size 1; several ranks need
+   several cards): the main path of phase 4 through the meshed engine
+   (`SlidingWindowInference(mesh=)`): s/volume of its first call (the
+   communicator's set-up) and of two more in turns with the one-device
+   engine on the same model, labels equal to phase 4's, 168 / 168 / 0
+   launches a volume; the data-parallel training step
+   (`make_train_step(mesh=)`, `train_path`'s B=2 batch on the one rank):
+   s/step of 3 steps, steps 2-3 in turns with the one-device kernel
+   step's, step 1's loss within 1e-5 of the one-device step's and its
+   gradients within phase 7's gates (`GRAD_TENSOR_RTOL`, `GRAD_RTOL`),
+   42 / 42 / 21 launches a step; `spatial_conv3d` (the halo
+   conv; a world of one takes zero halos) against `F.conv3d`, dense and
+   depthwise-dilated, within 1e-4·max(1, max|ref|); the general 2D deform
+   conv (groups 2, stride 2) on the card against the CPU, and its
+   depthwise 'same' case launching kernel 4 once, equal to the kernel's
+   wrapper plus the bias; Ranger's 13 steps on the card against the CPU
+   (rtol 1e-5, atol 1e-7); `utils.profiling.latency_bench` and
+   `latency_bench_scan` of the 2D flagship at batch 1, beside phase 11's
+   number.
 
 Phase 19 runs right after phase 8, the others in order. Then one JSON
 line of the kernels' numbers and, last, the contract line {"ok": true,
@@ -251,7 +271,8 @@ import torch
 import torch.nn.functional as F
 
 from deformablelka_tpu_torch import (baselines_path, case_path, main_path, main_path2d,
-                                     native, train_path, trainer2d_path, trainer_path)
+                                     native, parallel, train_path, trainer2d_path,
+                                     trainer_path)
 from deformablelka_tpu_torch.cli import (predict_simple, run_training, test_synapse2d,
                                          train_skin, train_synapse2d)
 from deformablelka_tpu_torch.grad_floor import NOISE_SHARE, plain_versions
@@ -277,6 +298,7 @@ from deformablelka_tpu_torch.nn.layers import init_parameters
 from deformablelka_tpu_torch.nn.lka2d import DeformConv
 from deformablelka_tpu_torch.ops import kernels
 from deformablelka_tpu_torch.ops.convs import to_nchw, to_ncdhw
+from deformablelka_tpu_torch.ops.deform2d import deform_conv2d
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform2d_plain
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d_backward as deform2d_bwd_plain
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_plain
@@ -286,9 +308,11 @@ from deformablelka_tpu_torch.ops.lka import dw_chain2d as chain2d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
 from deformablelka_tpu_torch.profiling import cold_ms, device_profile
 from deformablelka_tpu_torch.training.losses import poly_lr
-from deformablelka_tpu_torch.training.train_step import make_sgd
+from deformablelka_tpu_torch.parallel.spatial import spatial_conv3d
+from deformablelka_tpu_torch.training.train_step import make_ranger, make_sgd, make_train_step
 from deformablelka_tpu_torch.training.trainer3d import make_ds_train_step
 from deformablelka_tpu_torch.training.trainer_pancreas import TrainerPancreas
+from deformablelka_tpu_torch.utils.profiling import latency_bench, latency_bench_scan
 
 # (spatial size, channels, transformer blocks at that stage) on the main path
 STAGES = ((32, 32, 6), (16, 64, 6), (8, 128, 6), (4, 256, 3))
@@ -565,7 +589,7 @@ def phase_main_path(phase=4, trans_block=main_path.DEFAULT_BLOCK, expected=None)
         fail("the main path through the kernels disagrees with the plain versions")
     if max_off <= 1.0:
         fail("the offsets never reached past ±1")
-    return launches, wall
+    return launches, wall, seg
 
 
 def _rel_close(name, got, ref, report):
@@ -2316,6 +2340,204 @@ def phase_baselines() -> dict:
     return out
 
 
+def _meshed_volume(mesh, seg_one_device) -> dict:
+    """Phase 24 (a): the main path through the meshed engine, timed in
+    turns with the one-device engine on the same model; its launches a
+    volume."""
+    model, sw_one = main_path.build(seed=0)
+    sw = SlidingWindowInference(model, patch_size=PATCH, num_classes=main_path.NUM_CLASSES,
+                                step_size=0.5, do_mirroring=True, tta_batch=8, mesh=mesh)
+    vol = main_path.volume(seed=0)
+    with torch.no_grad():  # warm-up: one batch-8 forward
+        model(torch.zeros(8, *PATCH, 1, device="cuda"))
+    walls, counts, equal = {"mesh": [], "one": []}, [], []
+    # the first meshed call, then in turns: one-device, meshed, meshed, one-device
+    for engine, name in ((sw, "mesh"), (sw_one, "one"), (sw, "mesh"), (sw, "mesh"),
+                         (sw_one, "one")):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        seg = engine.predict_segmentation(vol)
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+        equal.append(float((seg == seg_one_device).mean()))
+        if name == "mesh":
+            counts.append(kernels.launch_counts())
+    tiles = len(sw.local_origins(sw.origins(VOLUME)))
+    print(f"phase 24 meshed main path, world {mesh.size('data')}: predict_segmentation "
+          f"{VOLUME}, {tiles} of {TILES} tiles on this rank: first call "
+          f"{walls['mesh'][0]:.3f} s (the communicator's set-up), then in turns with the "
+          f"one-device engine: meshed {', '.join(f'{w:.3f}' for w in walls['mesh'][1:])} "
+          f"s/volume, one-device {', '.join(f'{w:.3f}' for w in walls['one'])} s/volume; "
+          f"labels equal to phase 4's on {equal} of the voxels; launches a meshed volume "
+          f"{counts}", flush=True)
+    expected = {n: TILES * {"deform_conv3d": BLOCKS, "dw_chain3d": BLOCKS}.get(n, 0)
+                for n in counts[0]}
+    if any(c != expected for c in counts):
+        fail(f"meshed main path launches {counts}, expected {expected}")
+    if any(e != 1.0 for e in equal):
+        fail("the meshed main path's labels differ from phase 4's")
+    del model, sw, sw_one
+    torch.cuda.empty_cache()
+    return counts[0]
+
+
+def _dp_step(mesh) -> dict:
+    """Phase 24 (b): the data-parallel step at full width against the
+    one-device kernel step (step 1, then timed in turns); its launches
+    over 3 steps."""
+    grads_of = lambda model: {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    ref, path = train_path.build(seed=0), train_path.build(seed=0)
+    step = make_train_step(path.model, make_sgd(path.model.parameters(), train_path.LR),
+                           mesh=mesh)
+    image, label = parallel.shard_batch(mesh, (path.image, path.label))
+    loss_ref = float(train_path.step(ref)["loss"])
+    grads_ref = grads_of(ref.model)
+    times, per_step, losses, ref_times = [], [], [], []
+    for i, name in enumerate(("mesh", "mesh", "one", "one", "mesh")):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if name == "one":
+            train_path.step(ref)
+            torch.cuda.synchronize()
+            ref_times.append(time.perf_counter() - t0)
+            continue
+        m = step(image, label)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append(kernels.launch_counts())
+        losses.append(float(m["loss"]))
+        if i == 0:
+            grads = grads_of(path.model)
+    worst, worst_rel, whole = grad_rel(grads, grads_ref)
+    print(f"phase 24 data-parallel step, world {mesh.size('data')}, B={TRAIN_BATCH} on this "
+          f"rank: steps {', '.join(f'{t:.4f}' for t in times)} s, the one-device kernel "
+          f"step's 2-3 in turns with its 2-3: {', '.join(f'{t:.4f}' for t in ref_times)} s; "
+          f"step 1 vs the one-device kernel step: loss {losses[0]:.7f} vs {loss_ref:.7f} "
+          f"(rtol {LOSS_RTOL}), worst per-tensor ‖Δg‖/‖g‖ {worst_rel:.3e} ({worst}; max "
+          f"{GRAD_TENSOR_RTOL}), whole {whole:.3e} (max {GRAD_RTOL}); losses "
+          f"{[round(l, 6) for l in losses]}; launches per step {per_step}", flush=True)
+    if abs(losses[0] - loss_ref) > LOSS_RTOL * abs(loss_ref):
+        fail("the data-parallel step's loss disagrees with the one-device step's")
+    if worst_rel > GRAD_TENSOR_RTOL or whole > GRAD_RTOL:
+        fail(f"the data-parallel step's gradient disagrees with the one-device step's ({worst})")
+    if any(c != train_path.LAUNCHES_PER_STEP for c in per_step):
+        fail(f"data-parallel step launches {per_step}, expected {train_path.LAUNCHES_PER_STEP}")
+    if not np.all(np.isfinite(losses)):
+        fail(f"data-parallel losses {losses}")
+    del path, ref, step
+    torch.cuda.empty_cache()
+    return {n: sum(c[n] for c in per_step) for n in per_step[0]}
+
+
+def _rel_err(got, ref) -> tuple:
+    err = (got.cpu() - ref.cpu()).abs().max().item()
+    return err, REL_TOL * max(1.0, ref.abs().max().item())
+
+
+def _halo_conv_and_grouped_deform(mesh):
+    """Phase 24 (c): `spatial_conv3d` on the card against `F.conv3d`, the
+    general deform conv on the card against the CPU."""
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(2, 32, 32, 32, 32, device="cuda", generator=g)
+    group = mesh.group("data")
+    for label, w, dil, groups in (
+            ("3^3 dense", torch.randn(32, 32, 3, 3, 3, device="cuda", generator=g)
+             / (27 * 32) ** 0.5, 1, 1),
+            ("5^3 depthwise dil 3", torch.randn(32, 1, 5, 5, 5, device="cuda", generator=g)
+             / 125 ** 0.5, 3, 32)):
+        b = torch.randn(32, device="cuda", generator=g) * 0.1
+        got = spatial_conv3d(x, w, group, bias=b, dilation=dil, groups=groups)
+        ref = F.conv3d(to_ncdhw(x), w, b, padding=dil * (w.shape[2] // 2), dilation=dil,
+                       groups=groups).permute(0, 2, 3, 4, 1)
+        err, tol = _rel_err(got, ref)
+        print(f"phase 24 spatial_conv3d {label} {tuple(x.shape)}, world "
+              f"{mesh.size('data')}: max|err| vs F.conv3d {err:.3e} (tol {tol:.3e})", flush=True)
+        if not err <= tol:
+            fail(f"spatial_conv3d {label} disagrees with F.conv3d")
+    x2 = torch.randn(4, 28, 28, 16, device="cuda", generator=g)
+    w2 = torch.randn(3, 3, 8, 12, device="cuda", generator=g) / 72 ** 0.5
+    b2 = torch.randn(12, device="cuda", generator=g) * 0.1
+    off = (torch.rand(4, 14, 14, 18, device="cuda", generator=g) * 2 - 1) * 2.5
+    kw = dict(stride=2, padding=1, groups=2)
+    got = deform_conv2d(x2, off, w2, b2, **kw)
+    ref = deform_conv2d(*(t.cpu() for t in (x2, off, w2, b2)), **kw)
+    err, tol = _rel_err(got, ref)
+    wd = torch.randn(5, 5, 1, 16, device="cuda", generator=g) / 5
+    bd = torch.randn(16, device="cuda", generator=g) * 0.1
+    offd = (torch.rand(4, 28, 28, 50, device="cuda", generator=g) * 2 - 1) * 2.5
+    before = kernels.deform_dw_conv2d.launches
+    got_dw = deform_conv2d(x2, offd, wd, bd, padding=6, dilation=3, groups=16)
+    launched = kernels.deform_dw_conv2d.launches - before
+    same = torch.equal(got_dw, kernels.deform_dw_conv2d(x2, offd, wd, 3) + bd)
+    print(f"phase 24 deform_conv2d groups 2 stride 2 {tuple(x2.shape)} -> {tuple(got.shape)}: "
+          f"card vs CPU max|err| {err:.3e} (tol {tol:.3e}); its depthwise 5x5 dil 3 'same' "
+          f"case launched deform_dw_conv2d {launched} time(s), equal to the wrapper's "
+          f"{same}", flush=True)
+    if not err <= tol:
+        fail("the general deform conv on the card disagrees with the CPU")
+    if launched != 1 or not same:
+        fail("the depthwise deform conv did not go through kernel 4")
+
+
+def _ranger_and_latency(latency_phase11: float):
+    """Phase 24 (d): Ranger on the card against the CPU; the latency
+    helpers on the 2D flagship at batch 1."""
+    g = torch.Generator().manual_seed(5)
+    init = [torch.randn(s, generator=g) for s in ((64, 32), (32,), (3, 3, 16, 16))]
+    grads = [[torch.randn(t.shape, generator=g) * 0.5 for t in init] for _ in range(13)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = [torch.nn.Parameter(t.clone().to(dev)) for t in init]
+        opt = make_ranger(params, 3e-2, weight_decay=1e-2)
+        for gs in grads:
+            for p, gr in zip(params, gs):
+                p.grad = gr.to(dev)
+            opt.step()
+        out[dev] = [p.detach().cpu() for p in params]
+    bad = sum(int((~torch.isclose(a, b, rtol=1e-5, atol=1e-7)).sum())
+              for a, b in zip(out["cuda"], out["cpu"]))
+    err = max((a - b).abs().max().item() for a, b in zip(out["cuda"], out["cpu"]))
+    print(f"phase 24 Ranger, 13 steps on 3 tensors: card vs CPU max|Δ| {err:.3e}, "
+          f"{bad} values outside rtol 1e-5, atol 1e-7", flush=True)
+    if bad:
+        fail("Ranger's steps on the card disagree with the CPU")
+    model, _ = main_path2d.build("dlka", seed=0)
+    x = torch.zeros(1, *main_path2d.PATCH, 1, device="cuda")
+    lat = latency_bench(model, (x,), warmup=10, reps=100, inner=10)
+    scan = latency_bench_scan(model, (x,), reps=100, rounds=3)
+    print(f"phase 24 latency_bench 2D flagship batch 1 {main_path2d.PATCH} f32: "
+          f"{lat['mean_ms']:.3f} ± {lat['std_ms']:.3f} ms ({lat['reps']} calls, CUDA events "
+          f"over windows of 10); latency_bench_scan {scan['mean_ms']:.3f} ± "
+          f"{scan['std_ms']:.3f} ms ({scan['reps']} calls, 100 back to back a round); "
+          f"phase 11: {latency_phase11:.3f} ms", flush=True)
+    if not (np.isfinite(lat["mean_ms"]) and np.isfinite(scan["mean_ms"])):
+        fail("the latency helpers returned no time")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(seg_one_device, latency_phase11: float) -> dict:
+    """Phase 24: `parallel/` on a world of one rank; launches by path."""
+    import torch.distributed as dist
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.init_process_group("cuda", f"file://{Path(tmp) / 'store'}", 0, 1)
+        try:
+            mesh = parallel.make_mesh(("data",), device_type="cuda")
+            print(f"phase 24 world: backend {dist.get_backend()}, {mesh}", flush=True)
+            out = {"meshed main path, world 1": _meshed_volume(mesh, seg_one_device),
+                   "data-parallel step, world 1, 3 steps": _dp_step(mesh)}
+            _halo_conv_and_grouped_deform(mesh)
+            _ranger_and_latency(latency_phase11)
+        finally:
+            dist.destroy_process_group()
+    print(f"phase 24: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return out
+
+
 def kernel_line(rows, launches):
     """rows[name]: the per-stage measurements; launches[name]: counts by path."""
     sources = {"deform_conv3d": ("deformablelka_tpu_torch/csrc/deform3d.cu",
@@ -2384,7 +2606,7 @@ def main() -> int:
     phase_device()
     rows = phase_kernels()
     phase_small_reference()
-    launches, _ = phase_main_path()
+    launches, _, seg_main = phase_main_path()
     rows["deform_conv3d_bwd"] = phase_backward_kernel()
     phase_small_train_step()
     per_step, _ = phase_train_path()
@@ -2395,9 +2617,9 @@ def main() -> int:
     rows["deform_dw_conv2d_bwd"] = phase_2d_backward_kernel()
     launches_2d, _ = phase_2d_path()
     phase_2d_small_reference()
-    phase_2d_latency()
+    latency_2d = phase_2d_latency()
     rows["dwconv3d"] = phase_dwconv3d_kernel()
-    launches_sa, _ = phase_main_path(13, SIZE_AWARE, LAUNCHES_PER_FORWARD[SIZE_AWARE])
+    launches_sa, _, _ = phase_main_path(13, SIZE_AWARE, LAUNCHES_PER_FORWARD[SIZE_AWARE])
     phase_small_configs()
     launches_cli, _ = phase_synapse_cli()
     launches_pancreas, _ = phase_pancreas_tester()
@@ -2407,6 +2629,7 @@ def main() -> int:
     launches_synapse2d, launches_baseline2d, launches_skin, launches_zoo_clis = phase_2d_clis()
     launches_zoo = phase_2d_zoo()
     launches_baselines = phase_baselines()
+    launches_parallel = phase_parallel(seg_main, latency_2d)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernel_line(rows, {
         "inference main path": launches, "training path, 3 steps": train_launches,
@@ -2422,7 +2645,8 @@ def main() -> int:
         "train_synapse2d, 2 epochs of 2 batches": launches_synapse2d,
         "LKA Baseline Trainer2D, 3 steps": launches_baseline2d,
         "train_skin, 2 epochs of 2 batches": launches_skin,
-        **launches_zoo_clis, **launches_zoo, **launches_baselines})), flush=True)
+        **launches_zoo_clis, **launches_zoo, **launches_baselines,
+        **launches_parallel})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

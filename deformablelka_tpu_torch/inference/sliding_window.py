@@ -1,14 +1,24 @@
 """Sliding-window volumetric inference with Gaussian blending and mirror TTA.
 
-Port of `deformablelka_tpu/inference/sliding_window.py` for one device:
-nnUNet's step grid (`compute_steps`) or the Pancreas tester's stride grid
+Port of `deformablelka_tpu/inference/sliding_window.py`: nnUNet's step
+grid (`compute_steps`) or the Pancreas tester's stride grid
 (`compute_steps_stride`, `grid_mode="stride"`), the Gaussian importance
 map or count blending (`use_gaussian=False`), padding up to the patch,
 the 2^k mirror flips run `tta_batch` at a time, softmax averaged over the
 flips, blended into a numerator and a denominator on the device, and an
 argmax on the device whose uint8 result is all that comes back to the
 host. One Python loop over the tiles, one tile per forward, takes the
-place of the JAX engine's scan, tile batches, shape buckets and mesh.
+place of the JAX engine's scan, tile batches and shape buckets.
+
+With `mesh=` (a `parallel.Mesh`), the tiles are shared over `mesh_axis`
+as the JAX engine shards them (`P(axis)`): the list is cut into equal
+contiguous chunks of ceil(n / ranks), each rank blends its own chunk into
+its numerator and denominator, and both are summed over the axis
+(`all_reduce`) before the division, so every rank returns the same
+probabilities. The JAX engine pads the list with weight-0 tiles up to a
+multiple of the axis; they add nothing, so the port skips them (the last
+ranks may get fewer tiles, or none). Every rank must hold the same
+weights (`parallel.replicated`).
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from typing import Callable, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.ndimage import gaussian_filter
 
 
@@ -118,7 +129,7 @@ def mirror_tta_softmax(apply_fn: Callable, tile: torch.Tensor, mirror_axes,
 
 
 class SlidingWindowInference:
-    """Tiled 3D prediction on one device.
+    """Tiled 3D prediction on one device, or over the ranks of a mesh axis.
 
     `apply_fn(x)` maps a (b, *patch, C) float32 tensor to logits
     (b, *patch, ncls), or to a deep-supervision list whose first entry is
@@ -126,14 +137,21 @@ class SlidingWindowInference:
     `grid_mode`: "nnunet", the evenly spaced overlap grid of `step_size`
     (upstream's neural_network.py:267-290), or "stride", the Pancreas
     tester's grid of fixed strides `stride_xy`, `stride_xy`, `stride_z`,
-    clamped at the border (test_util.py:75-111).
+    clamped at the border (test_util.py:75-111). `mesh`, `mesh_axis`: share
+    the tiles over that axis of a `parallel.Mesh` (the module docstring);
+    the engine then runs on the mesh's device.
     """
 
     def __init__(self, apply_fn: Callable, patch_size, num_classes: int,
                  step_size: float = 0.5, do_mirroring: bool = True,
                  mirror_axes=(0, 1, 2), use_gaussian: bool = True,
                  tta_batch: int = 1, grid_mode: str = "nnunet",
-                 stride_xy: int = 16, stride_z: int = 16, device="cuda"):
+                 stride_xy: int = 16, stride_z: int = 16, device="cuda",
+                 mesh=None, mesh_axis: str = "data"):
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        if mesh is not None:
+            device = mesh.device
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device; pass device='cpu' to run "
@@ -162,6 +180,17 @@ class SlidingWindowInference:
         return [(a, b, c) for a in steps[0] for b in steps[1]
                 for c in steps[2]]
 
+    def local_origins(self, origins):
+        """This rank's contiguous chunk of the tile list (all of it without
+        a mesh): chunks of ceil(n / ranks), as `P(axis)` cuts the list that
+        the JAX engine pads with weight-0 tiles, which are skipped here."""
+        if self.mesh is None:
+            return origins
+        n_rank = self.mesh.size(self.mesh_axis)
+        per = -(-len(origins) // n_rank)
+        i = self.mesh.coordinate(self.mesh_axis)
+        return origins[i * per:(i + 1) * per]
+
     @torch.no_grad()
     def predict(self, volume: np.ndarray, do_mirroring: bool | None = None,
                 return_device: bool = False):
@@ -184,13 +213,17 @@ class SlidingWindowInference:
         gauss = torch.from_numpy(gauss).to(dev)
         num = torch.zeros(*padded_shape, self.num_classes, device=dev)
         den = torch.zeros(padded_shape, device=dev)
-        for o in origins:
+        for o in self.local_origins(origins):
             sl = tuple(slice(s, s + p) for s, p in zip(o, self.patch_size))
             prob = mirror_tta_softmax(self.apply_fn, data[sl][None],
                                       self.mirror_axes, do_mirroring,
                                       self.tta_batch)
             num[sl] += prob * gauss[..., None]
             den[sl] += gauss
+        if self.mesh is not None:
+            group = self.mesh.group(self.mesh_axis)
+            dist.all_reduce(num, group=group)
+            dist.all_reduce(den, group=group)
         probs = num / den[..., None]
         if return_device:
             return probs, tuple(slicer)

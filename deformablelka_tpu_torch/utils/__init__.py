@@ -1,2 +1,3 @@
 """Host utilities: the data and results folders from the environment
-(`paths`) and segmentation overlay PNGs (`overlay`)."""
+(`paths`), segmentation overlay PNGs (`overlay`), and parameter and
+operation counts, traces and latency benchmarks (`profiling`)."""

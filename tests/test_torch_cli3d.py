@@ -59,7 +59,9 @@ def _write_runs(tmp_path):
         v = jax_variables(jm, x, seed, shapes=shapes)
         jckpt.CheckpointManager(tmp_path / "jax_run" / f"fold_{fold}" / "ckpt",
                                 async_save=False).save(case_path.CHECKPOINT, v)
-        tckpt.CheckpointManager(tmp_path / "port_run" / f"fold_{fold}" / "ckpt").save(
+        # a synchronous save: the CLI reads the run through managers of its own
+        tckpt.CheckpointManager(tmp_path / "port_run" / f"fold_{fold}" / "ckpt",
+                                async_save=False).save(
             case_path.CHECKPOINT, {"model": state_dict_from_jax(v, tm)})
 
 
@@ -182,8 +184,9 @@ def test_model_restore_round_trip(tmp_path):
         assert json.loads((run / model_restore.MODEL_CONFIG).read_text()) == cfg
         model = dlka_net_pancreas(2, img_size=(32, 32, 32), trans_block="TransformerBlock_SE",
                                   seed=fold + 5, device="cpu")
-        tckpt.CheckpointManager(run).save("model_final_checkpoint",
-                                          {"model": model.state_dict(), "epoch": 1})
+        # a synchronous save: `restore_model` reads through a manager of its own
+        tckpt.CheckpointManager(run, async_save=False).save(
+            "model_final_checkpoint", {"model": model.state_dict(), "epoch": 1})
     model, sd = model_restore.restore_model(tmp_path / "fold_1", device="cpu")
     assert not model.training
     assert sum(type(m).__name__ == "TransformerBlock_SE" for m in model.modules()) == 21

@@ -108,13 +108,19 @@ def test_plain_deform_gradients_match_the_tpu_kernels_vjp(k, dil):
 
 
 def test_plain_deform_raises_on_what_is_not_ported():
+    """Every case is ported now (the dense and strided ones are held against
+    JAX in test_torch_deform2d_groups.py): what raises is what does not fit."""
     x = torch.zeros(1, 6, 6, 4)
     off = torch.zeros(1, 6, 6, 18)
-    with pytest.raises(NotImplementedError):
-        deform2d.deform_conv2d(x, off, torch.zeros(3, 3, 4, 4), padding=1, groups=1)
-    with pytest.raises(NotImplementedError):
-        deform2d.deform_conv2d(x, torch.zeros(1, 3, 3, 18), torch.zeros(3, 3, 1, 4),
-                               stride=2, padding=1, groups=4)
+    assert deform2d.deform_conv2d(x, off, torch.zeros(3, 3, 4, 4), padding=1,
+                                  groups=1).shape == (1, 6, 6, 4)
+    assert deform2d.deform_conv2d(x, torch.zeros(1, 3, 3, 18), torch.zeros(3, 3, 1, 4),
+                                  stride=2, padding=1, groups=4).shape == (1, 3, 3, 4)
+    with pytest.raises(ValueError):   # Cin / groups · groups != C
+        deform2d.deform_conv2d(x, off, torch.zeros(3, 3, 3, 4), padding=1, groups=2)
+    with pytest.raises(ValueError):   # offsets of the stride-1 grid at stride 2
+        deform2d.deform_conv2d(x, off, torch.zeros(3, 3, 1, 4), stride=2, padding=1,
+                               groups=4)
 
 
 def _chain_case(seed=4, B=2, H=11, W=13, C=6):

@@ -49,9 +49,11 @@ def test_port_modules_are_listed():
                  "models.pancreas_baselines", "models.generic_unet", "data.plans",
                  "data.sanity_checks", "data.experiment_planning", "data.convert_tasks",
                  "evaluation.region_based", "evaluation.model_selection", "utils",
-                 "utils.paths", "utils.overlay", "cli.tools", "baselines_path"):
+                 "utils.paths", "utils.overlay", "cli.tools", "baselines_path",
+                 "parallel", "parallel.mesh", "parallel.spatial", "parallel.launch",
+                 "utils.profiling"):
         assert f"deformablelka_tpu_torch.{name}" in MODULES
-    assert len(MODULES) >= 94
+    assert len(MODULES) >= 99
 
 
 @pytest.mark.parametrize("names", [MODULES, ["chip_smoke"]],
