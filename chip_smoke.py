@@ -130,9 +130,10 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    first), the waits on the prefetch queue, the host seconds of loading
    and augmenting a batch, s/epoch, the checkpoint writes, peak device
    memory, launches (42 / 42 / 21 per step, 21 / 21 / 0 per validation
-   batch); `-val` on the 2 validation cases (168 / 168 / 0 launches per
-   case, `summary.json` and `postprocessing.json` written, the labels of
-   one case ≥ 0.999 equal to the plain run's); `-c` from `model_latest`
+   batch); `-val` on the 2 validation cases, its tiles in bfloat16 as
+   the JAX CLI's (168 / 168 / 0 launches per case, `summary.json` and
+   `postprocessing.json` written, the labels of one case ≥ 0.999 equal to
+   the same bfloat16 run through the plain versions); `-c` from `model_latest`
    (epoch, step count and losses restored); and the step on one batch with
    the training augmenter's threads running beside it and with none, in
    turns;
@@ -248,7 +249,27 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    wrapper plus the bias; Ranger's 13 steps on the card against the CPU
    (rtol 1e-5, atol 1e-7); `utils.profiling.latency_bench` and
    `latency_bench_scan` of the 2D flagship at batch 1, beside phase 11's
-   number.
+   number;
+25. the JAX package's bfloat16-input inference (`bench.py:150-151,199-201`,
+   `cli/test_pancreas.py:54-55`, `cli/run_training.py:174-175`,
+   `bench.py:119`): the main path of phase 4 with the volume uploaded in
+   bfloat16 (`main_path.build(input_dtype=torch.bfloat16)`): s/volume
+   in turns with the same model's float32 engine (two calls each after a
+   warm one) and beside phase 4's first call, 168 / 168 / 0 launches
+   (every kernel call held to float32 by the wrappers' guard), the
+   labels ≥ 0.999 equal to the same bfloat16 run through the plain
+   versions; phase 16's case through the Pancreas tester in bfloat16 for
+   each of its four models (`build_pancreas_model`: the sliding window's
+   seconds beside the same model's float32 tester, s/case with the host
+   metrics; D-LKA Net 189 / 189 launches, the baselines none; finite
+   metrics); one `-val` batch in bfloat16 (the 8 mirror flips of one
+   tile through the deep-supervision model, 21 / 21 / 0, the softmax
+   within 1e-3 and the labels ≥ 0.999 equal to the plain versions'); the
+   2D flagship's batch-1 224² forward on a bfloat16 input (ms in turns
+   with the float32 input and beside phase 11, 12 launches, logits
+   float32 and the labels ≥ 0.999 equal to the plain versions'). Phase
+   17's `-val` runs in bfloat16 too (`cli/run_training.py`), its plain
+   run as well.
 
 Phase 19 runs right after phase 8, the others in order. Then one JSON
 line of the kernels' numbers and, last, the contract line {"ok": true,
@@ -275,6 +296,7 @@ from deformablelka_tpu_torch import (baselines_path, case_path, main_path, main_
                                      trainer_path)
 from deformablelka_tpu_torch.cli import (predict_simple, run_training, test_synapse2d,
                                          train_skin, train_synapse2d)
+from deformablelka_tpu_torch.cli._pancreas_models import build_pancreas_model
 from deformablelka_tpu_torch.grad_floor import NOISE_SHARE, plain_versions
 from deformablelka_tpu_torch.data import nifti
 from deformablelka_tpu_torch.data.augment import ThreadedAugmenter
@@ -282,7 +304,8 @@ from deformablelka_tpu_torch.data.dataset import load_case, load_dataset
 from deformablelka_tpu_torch.inference import pancreas
 from deformablelka_tpu_torch.inference.predictor2d import benchmark_inference_speed
 from deformablelka_tpu_torch.inference.predictor3d import TTA_BATCH
-from deformablelka_tpu_torch.inference.sliding_window import SlidingWindowInference
+from deformablelka_tpu_torch.inference.sliding_window import (SlidingWindowInference,
+                                                             mirror_tta_softmax)
 from deformablelka_tpu_torch.main_path import (BLOCKS, LAUNCHES_PER_FORWARD, PATCH,
                                               SIZE_AWARE, TILES, VOLUME)
 from deformablelka_tpu_torch.models import (BiDAEFormer, DAEFormer, DAELKAFormer,
@@ -1346,7 +1369,7 @@ def phase_synapse_trainer():
         model = validator.model
         sw = SlidingWindowInference(lambda x: model(x)[0], patch_size=trainer_path.PATCH,
                                     num_classes=trainer_path.NUM_CLASSES, step_size=0.5,
-                                    tta_batch=TTA_BATCH)
+                                    tta_batch=TTA_BATCH, input_dtype=torch.bfloat16)
         tiles = len(sw.origins(trainer_path.CASE_SHAPE))
         summary = json.loads((val_dir / "summary.json").read_text())
         dice = [summary["results"]["mean"][str(c)]["Dice"]
@@ -2538,6 +2561,169 @@ def phase_parallel(seg_one_device, latency_phase11: float) -> dict:
     return out
 
 
+def _bf16_main_path(wall_f32: float) -> dict:
+    """Phase 4's volume uploaded in bf16: s/volume in turns with the same
+    model's f32 engine (and beside phase 4's call), launches, labels vs
+    the same bf16 run through the plain versions."""
+    model, sw = main_path.build(seed=0, input_dtype=torch.bfloat16)
+    sw32 = SlidingWindowInference(model, patch_size=PATCH, num_classes=main_path.NUM_CLASSES,
+                                  step_size=0.5, do_mirroring=True, tta_batch=8)
+    vol = main_path.volume(seed=0)
+    walls = {"bf16": [], "f32": []}
+
+    def timed(engine, key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.predict_segmentation(vol)
+        torch.cuda.synchronize()
+        walls[key].append(time.perf_counter() - t0)
+        return out
+
+    timed(sw, "bf16"), timed(sw32, "f32")  # warm-up, one call each
+    walls = {"bf16": [], "f32": []}
+    kernels.reset_launches()
+    seg = timed(sw, "bf16")
+    launches = kernels.launch_counts()
+    seg32 = timed(sw32, "f32")
+    timed(sw, "bf16"), timed(sw32, "f32")
+    with plain_versions():
+        seg_plain = sw.predict_segmentation(vol)
+    agree = float((seg == seg_plain).mean())
+    print(f"phase 25 main path, bf16 input: predict_segmentation {VOLUME}: "
+          f"{' / '.join(f'{w:.3f}' for w in walls['bf16'])} s wall, in turns with the "
+          f"f32 engine's {' / '.join(f'{w:.3f}' for w in walls['f32'])} (phase 4, f32, "
+          f"first call: {wall_f32:.3f} s); launches {launches}; labels vs the bf16 plain "
+          f"run {agree:.6f} (min {MIN_AGREEMENT}), vs the f32 run "
+          f"{float((seg == seg32).mean()):.6f}", flush=True)
+    if launches != _expected_3d(TILES):
+        fail(f"bf16 main path launches {launches}")
+    if seg.shape != VOLUME or seg.dtype != np.uint8 or agree < MIN_AGREEMENT:
+        fail("the bf16 main path through the kernels disagrees with the plain versions")
+    del model, sw, sw32
+    return launches
+
+
+def _bf16_pancreas_tester() -> dict:
+    """Phase 16's case through the tester in bf16, each of its four
+    models, then the same model's f32 tester."""
+    case = case_path.pancreas_case(seed=0)
+    out = {}
+    for name in ("dlka_net", "vnet", "resnet34", "unetr"):
+        model = build_pancreas_model(name, main_path.DEFAULT_BLOCK, case_path.PANCREAS_PATCH)
+        engines = {dtype: pancreas.make_pancreas_sliding_window(
+            model, patch_size=case_path.PANCREAS_PATCH, stride_xy=case_path.PANCREAS_STRIDE,
+            stride_z=case_path.PANCREAS_STRIDE, input_dtype=dtype)
+            for dtype in (torch.bfloat16, None)}
+        padded = tuple(max(s, p) for s, p in zip(case[1].shape, case_path.PANCREAS_PATCH))
+        tiles = len(engines[None].origins(padded))
+        with torch.no_grad():
+            for dtype in (torch.bfloat16, torch.float32):
+                model(torch.zeros(1, *case_path.PANCREAS_PATCH, 1, device="cuda", dtype=dtype))
+        torch.cuda.synchronize()
+        walls, labels = {}, {}
+        for dtype, sw in engines.items():
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            labels[dtype], _ = pancreas.test_single_case(sw, case[1])
+            walls[dtype] = time.perf_counter() - t0
+            if dtype is not None:
+                launches = kernels.launch_counts()
+        t0 = time.perf_counter()
+        avg = pancreas.test_all_case(engines[torch.bfloat16], [case], verbose=False)
+        wall = time.perf_counter() - t0
+        expected = _expected_3d(tiles) if name == "dlka_net" else {n: 0 for n in launches}
+        print(f"phase 25 Pancreas tester, bf16 input, --model {name}: sliding window "
+              f"{walls[torch.bfloat16]:.3f} s (f32: {walls[None]:.3f} s), {wall:.3f} s/case "
+              f"with the host metrics ({tiles} tiles); labels vs f32 "
+              f"{float((labels[torch.bfloat16] == labels[None]).mean()):.6f}; (dice, jaccard, "
+              f"hd95, asd) {avg.tolist()}; launches {launches}", flush=True)
+        if launches != expected:
+            fail(f"bf16 Pancreas tester {name}: launches {launches}, expected {expected}")
+        if not (np.all(np.isfinite(avg)) and 0.0 <= avg[0] <= 1.0):
+            fail(f"bf16 Pancreas tester {name}: bad metrics {avg}")
+        out[f"Pancreas tester bf16 --model {name}, 1 case"] = launches
+        del model, engines
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_val_batch() -> dict:
+    """One `-val` batch: the 8 mirror flips of one bf16 tile through the
+    deep-supervision model, kernels against plain versions."""
+    model = dlka_former_synapse(trainer_path.NUM_CLASSES, do_ds=True, remat=True, seed=0)
+    main_path.drive_gates(model, 11)
+    tile = torch.from_numpy(main_path.volume(seed=1)[:PATCH[0], :PATCH[1], :PATCH[2]])
+    tile = tile[None].to(torch.bfloat16).cuda()
+
+    def forward():
+        with torch.no_grad():
+            return mirror_tta_softmax(lambda x: model(x)[0], tile, (0, 1, 2), True, TTA_BATCH)
+
+    forward()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    prob = forward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    with plain_versions():
+        prob_plain = forward()
+    err = (prob - prob_plain).abs().max().item()
+    agree = (prob.argmax(-1) == prob_plain.argmax(-1)).float().mean().item()
+    print(f"phase 25 -val batch, bf16 tile {PATCH} x 8 flips: {wall:.3f} s; softmax "
+          f"{prob.dtype}, max|kernels - plain| {err:.3g} (max 1e-3), labels {agree:.6f}; "
+          f"launches {launches}", flush=True)
+    if launches != _expected_3d(1) or prob.dtype != torch.float32:
+        fail(f"bf16 -val batch launches {launches}, softmax {prob.dtype}")
+    if not (err <= 1e-3 and agree >= MIN_AGREEMENT):
+        fail("the bf16 -val batch through the kernels disagrees with the plain versions")
+    del model
+    return launches
+
+
+def _bf16_2d_latency(latency_f32: float) -> dict:
+    """The 2D flagship's batch-1 224² forward on a bf16 input, timed in
+    turns with the f32 input."""
+    model, _ = main_path2d.build("dlka", seed=0)
+    g = torch.Generator().manual_seed(3)
+    x32 = torch.randn(1, *main_path2d.PATCH, 1, generator=g).cuda()
+    x = x32.to(torch.bfloat16)
+    ms = {"bf16": [], "f32": []}
+    with torch.no_grad():
+        for _ in range(2):
+            ms["bf16"].append(timed_ms(lambda: model(x), 50, warmup=5))
+            ms["f32"].append(timed_ms(lambda: model(x32), 50, warmup=5))
+        kernels.reset_launches()
+        logits = model(x)
+        launches = kernels.launch_counts()
+        with plain_versions():
+            logits_plain = model(x)
+    agree = (logits.argmax(-1) == logits_plain.argmax(-1)).float().mean().item()
+    print(f"phase 25 2D flagship batch 1 {main_path2d.PATCH}, bf16 input: "
+          f"{' / '.join(f'{m:.3f}' for m in ms['bf16'])} ms per forward (CUDA events over "
+          f"50), in turns with the f32 input's {' / '.join(f'{m:.3f}' for m in ms['f32'])} "
+          f"(phase 11, f32: {latency_f32:.3f} ms); logits {logits.dtype}, labels vs plain "
+          f"{agree:.6f}; launches {launches}", flush=True)
+    expected = {n: main_path2d.LAUNCHES_PER_FORWARD["dlka"].get(n, 0) for n in launches}
+    if launches != expected or logits.dtype != torch.float32 or agree < MIN_AGREEMENT:
+        fail(f"bf16 2D forward: launches {launches}, logits {logits.dtype}, agreement {agree}")
+    del model
+    return launches
+
+
+def phase_bf16_input(wall_f32: float, latency_f32: float) -> dict:
+    """Phase 25: the JAX package's bf16-input inference paths."""
+    t0 = time.perf_counter()
+    out = {"inference main path, bf16 input": _bf16_main_path(wall_f32)}
+    out.update(_bf16_pancreas_tester())
+    out["-val batch, bf16 input"] = _bf16_val_batch()
+    out["2D flagship batch 1, bf16 input"] = _bf16_2d_latency(latency_f32)
+    torch.cuda.empty_cache()
+    print(f"phase 25 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def kernel_line(rows, launches):
     """rows[name]: the per-stage measurements; launches[name]: counts by path."""
     sources = {"deform_conv3d": ("deformablelka_tpu_torch/csrc/deform3d.cu",
@@ -2606,7 +2792,7 @@ def main() -> int:
     phase_device()
     rows = phase_kernels()
     phase_small_reference()
-    launches, _, seg_main = phase_main_path()
+    launches, wall_main, seg_main = phase_main_path()
     rows["deform_conv3d_bwd"] = phase_backward_kernel()
     phase_small_train_step()
     per_step, _ = phase_train_path()
@@ -2630,6 +2816,7 @@ def main() -> int:
     launches_zoo = phase_2d_zoo()
     launches_baselines = phase_baselines()
     launches_parallel = phase_parallel(seg_main, latency_2d)
+    launches_bf16 = phase_bf16_input(wall_main, latency_2d)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernel_line(rows, {
         "inference main path": launches, "training path, 3 steps": train_launches,
@@ -2646,7 +2833,7 @@ def main() -> int:
         "LKA Baseline Trainer2D, 3 steps": launches_baseline2d,
         "train_skin, 2 epochs of 2 batches": launches_skin,
         **launches_zoo_clis, **launches_zoo, **launches_baselines,
-        **launches_parallel})), flush=True)
+        **launches_parallel, **launches_bf16})), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,9 +16,9 @@ fed by `DataLoader3D` and the augmentation in 4 threads each
 every validation case with the sliding window (step 0.5, 8 mirror flips
 in one batch-8 forward) from the final (else best, else latest)
 checkpoint and writes `validation/summary.json` and
-`validation/postprocessing.json`. Runs on the card unless `--device cpu`,
-in float32 (the JAX CLI's `-val` casts the tile to bfloat16; the port's
-kernels take float32 only). `main` returns the trainer; it stops the
+`validation/postprocessing.json`; its tiles go to the model in bfloat16,
+as the JAX CLI casts them (`cli/run_training.py:174-175`). Runs on the
+card unless `--device cpu`. `main` returns the trainer; it stops the
 augmenters' threads before it returns.
 
 `network 2d` is nnUNet's `2d` configuration on the same preprocessed
@@ -229,7 +229,7 @@ def validate(trainer, val_dataset, patch, num_classes, out_folder):
     sw = SlidingWindowInference(apply_fn, patch_size=patch,
                                 num_classes=num_classes, step_size=0.5,
                                 do_mirroring=True, tta_batch=TTA_BATCH,
-                                device=trainer.device)
+                                device=trainer.device, input_dtype=torch.bfloat16)
     val_dir = Path(out_folder) / "validation"
     val_dir.mkdir(parents=True, exist_ok=True)
     pairs = []

@@ -12,9 +12,10 @@ report mean (dice, jaccard, hd95, asd):
         [--model dlka_net|vnet|resnet34|unetr]
         [--device cuda|cpu]
 
-The model runs in float32 on the card unless `--device cpu`. The JAX CLI
-casts the input to bfloat16 before the model; the port's kernels take
-float32 only, so the port does not.
+The model runs on the card unless `--device cpu`, and takes its input in
+bfloat16, as the JAX CLI casts it (`cli/test_pancreas.py:54-55`), for
+every `--model`: each model runs in bfloat16 up to where it promotes to
+its float32 weights, as its JAX counterpart does.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
+    import torch
+
     from deformablelka_tpu_torch.cli._pancreas_models import build_pancreas_model
     from deformablelka_tpu_torch.data.pancreas import read_fold_list
     from deformablelka_tpu_torch.inference.pancreas import (
@@ -61,7 +64,8 @@ def main(argv=None):
     model.load_state_dict(state["model"], strict=True)
     sw = make_pancreas_sliding_window(
         model.eval(), patch_size=tuple(args.patch_size),
-        stride_xy=args.stride_xy, stride_z=args.stride_z, device=args.device)
+        stride_xy=args.stride_xy, stride_z=args.stride_z, device=args.device,
+        input_dtype=torch.bfloat16)
     cases = read_fold_list(args.root_path, args.test_fold)
     avg = test_all_case(sw, cases, save_dir=args.save_dir)
     print(f"dice={avg[0]:.4f} jaccard={avg[1]:.4f} "

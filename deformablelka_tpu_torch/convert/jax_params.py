@@ -37,12 +37,12 @@ and of `convert_generic_unet`:
   `ls1` → `ls1.gamma`, `deform_conv_weight` → `deform_conv.weight`;
   batch stats `mean`/`var` → `running_mean`/`running_var`;
 - layouts: conv kernels (k..., Cin/g, Cout) → (Cout, Cin/g, k...),
-  transposed-conv kernels (kd, kh, kw, Cin, Cout) → (Cin, Cout, kd, kh,
-  kw), and flipped in space where the JAX layer is flax's
-  `nn.ConvTranspose` (a `StrideConvTranspose` here: the VNet family's
-  and GenericUNet's up-convs, 2D or 3D), linear (Cin, Cout) → (Cout, Cin), and to a torch 1×1 conv (DAT's
-  `proj_k`, `proj_v`) (Cout, Cin, 1, 1). A value whose shape is not its
-  parameter's raises.
+  transposed-conv kernels (k..., Cin, Cout) → (Cin, Cout, k...), 2D or
+  3D, and flipped in space where the JAX layer is flax's
+  `nn.ConvTranspose` (a `PromotingStrideConvTranspose` here: the VNet
+  family's and GenericUNet's up-convs), linear (Cin, Cout) → (Cout, Cin),
+  and to a torch 1×1 conv (DAT's `proj_k`, `proj_v`) (Cout, Cin, 1, 1).
+  A value whose shape is not its parameter's raises.
 """
 
 from __future__ import annotations
@@ -153,9 +153,10 @@ def _layout(owner: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
         nd = arr.ndim - 2
         w = arr.transpose(nd, nd + 1, *range(nd))
         return np.ascontiguousarray(w[(slice(None),) * 2 + (slice(None, None, -1),) * nd])
+    if leaf == "weight" and isinstance(owner, ConvTranspose):
+        nd = arr.ndim - 2
+        return arr.transpose(nd, nd + 1, *range(nd))
     if leaf == "weight" and arr.ndim == 5:
-        if isinstance(owner, ConvTranspose):
-            return arr.transpose(3, 4, 0, 1, 2)
         return arr.transpose(4, 3, 0, 1, 2)
     if leaf == "weight" and arr.ndim == 4:
         return arr.transpose(3, 2, 0, 1)

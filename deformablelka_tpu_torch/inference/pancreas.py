@@ -13,7 +13,8 @@ Port of `deformablelka_tpu/inference/pancreas.py`. Upstream's behaviour:
 
 The tile loop is the port's `SlidingWindowInference` in "stride" mode,
 one tile per forward; the engine holds the model, so no parameters are
-passed here.
+passed here. `input_dtype` is the type the model takes: the Pancreas CLI
+passes `torch.bfloat16`, as the JAX CLI casts its tiles.
 """
 
 from __future__ import annotations
@@ -29,12 +30,13 @@ from deformablelka_tpu_torch.inference.sliding_window import SlidingWindowInfere
 
 def make_pancreas_sliding_window(apply_fn: Callable, num_classes: int = 2,
                                  patch_size=(96, 96, 96), stride_xy: int = 16,
-                                 stride_z: int = 16,
-                                 device="cuda") -> SlidingWindowInference:
+                                 stride_z: int = 16, device="cuda",
+                                 input_dtype=None) -> SlidingWindowInference:
     return SlidingWindowInference(
         apply_fn, patch_size=patch_size, num_classes=num_classes,
         do_mirroring=False, use_gaussian=False, grid_mode="stride",
-        stride_xy=stride_xy, stride_z=stride_z, device=device)
+        stride_xy=stride_xy, stride_z=stride_z, device=device,
+        input_dtype=input_dtype)
 
 
 def test_single_case(sw: SlidingWindowInference, image: np.ndarray):

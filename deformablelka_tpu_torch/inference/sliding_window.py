@@ -19,6 +19,13 @@ probabilities. The JAX engine pads the list with weight-0 tiles up to a
 multiple of the axis; they add nothing, so the port skips them (the last
 ranks may get fewer tiles, or none). Every rank must hold the same
 weights (`parallel.replicated`).
+
+`input_dtype` (e.g. `torch.bfloat16`) is the JAX engine's
+(`inference/sliding_window.py:308-311,441-442`): the padded volume is cast
+to it on the host before it goes to the device and is tiled, so the
+upload, the tiles and the model's input are in that type; the softmax and
+the blending stay in float32. The JAX tester, `-val` and the bench feed
+their models bfloat16.
 """
 
 from __future__ import annotations
@@ -131,9 +138,9 @@ def mirror_tta_softmax(apply_fn: Callable, tile: torch.Tensor, mirror_axes,
 class SlidingWindowInference:
     """Tiled 3D prediction on one device, or over the ranks of a mesh axis.
 
-    `apply_fn(x)` maps a (b, *patch, C) float32 tensor to logits
-    (b, *patch, ncls), or to a deep-supervision list whose first entry is
-    used. Volumes are (S1, S2, S3, C) numpy arrays on the host.
+    `apply_fn(x)` maps a (b, *patch, C) tensor in `input_dtype` (float32
+    unless given) to logits (b, *patch, ncls), or to a deep-supervision
+    list whose first entry is used. Volumes are (S1, S2, S3, C) numpy arrays on the host.
     `grid_mode`: "nnunet", the evenly spaced overlap grid of `step_size`
     (upstream's neural_network.py:267-290), or "stride", the Pancreas
     tester's grid of fixed strides `stride_xy`, `stride_xy`, `stride_z`,
@@ -147,7 +154,7 @@ class SlidingWindowInference:
                  mirror_axes=(0, 1, 2), use_gaussian: bool = True,
                  tta_batch: int = 1, grid_mode: str = "nnunet",
                  stride_xy: int = 16, stride_z: int = 16, device="cuda",
-                 mesh=None, mesh_axis: str = "data"):
+                 mesh=None, mesh_axis: str = "data", input_dtype=None):
         self.mesh = mesh
         self.mesh_axis = mesh_axis
         if mesh is not None:
@@ -169,6 +176,7 @@ class SlidingWindowInference:
         self.grid_mode = grid_mode
         self.stride_xy = stride_xy
         self.stride_z = stride_z
+        self.input_dtype = input_dtype
 
     def origins(self, padded_shape):
         if self.grid_mode == "stride":
@@ -209,7 +217,10 @@ class SlidingWindowInference:
         else:
             gauss = np.ones(self.patch_size, np.float32)
         dev = self.device
-        data = torch.from_numpy(data).to(dev)
+        data = torch.from_numpy(data)
+        if self.input_dtype is not None:
+            data = data.to(self.input_dtype)
+        data = data.to(dev)
         gauss = torch.from_numpy(gauss).to(dev)
         num = torch.zeros(*padded_shape, self.num_classes, device=dev)
         den = torch.zeros(padded_shape, device=dev)

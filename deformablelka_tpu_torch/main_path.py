@@ -14,7 +14,13 @@ stage; the size-aware one, "TransformerBlock_Deform_LKA_Spatial_sequential",
 is the path that runs the dilated depthwise kernel (`kernels.dwconv3d`:
 9 launches per forward, `LAUNCHES_PER_FORWARD`).
 
-    python -m deformablelka_tpu_torch.main_path [--trans_block NAME]
+`build(input_dtype=torch.bfloat16)` (`--dtype bf16`) is `bench.py`'s own
+protocol (`bench.py:150-151,199-201`): the volume is uploaded in bfloat16
+and the model takes bfloat16 tiles; its stem and `encoder1` run in
+bfloat16 and every D-LKA block promotes to float32 at its position
+embedding, so the kernels see float32 as before. float32 is the default.
+
+    python -m deformablelka_tpu_torch.main_path [--trans_block NAME] [--dtype bf16]
 
 runs the main path (with the published block, or NAME) once to warm up,
 then once under `torch.profiler` on the card, and prints the wall time,
@@ -39,6 +45,7 @@ PATCH = (64, 128, 128)
 VOLUME = (96, 192, 160)
 NUM_CLASSES = 14
 TILES = 8
+DTYPES = {"f32": None, "bf16": torch.bfloat16}  # --dtype: the model input's type
 BLOCKS = 21  # D-LKA blocks in one forward: one launch of each kernel apiece
 SIZE_AWARE = "TransformerBlock_Deform_LKA_Spatial_sequential"
 # kernel launches per batch-8 forward of the size-aware configuration: its
@@ -64,14 +71,17 @@ def drive_gates(model, seed: int) -> None:
                 m.gamma.fill_(1.0)
 
 
-def build(seed: int = 0, device="cuda", trans_block: str = DEFAULT_BLOCK):
-    """The model (gates driven) and the sliding-window engine."""
+def build(seed: int = 0, device="cuda", trans_block: str = DEFAULT_BLOCK,
+          input_dtype=None):
+    """The model (gates driven) and the sliding-window engine, which feeds
+    the model `input_dtype` (float32 unless given)."""
     model = dlka_former_synapse(NUM_CLASSES, do_ds=False, seed=seed,
                                 trans_block=trans_block, device=device)
     drive_gates(model, seed + 11)
     sw = SlidingWindowInference(model, patch_size=PATCH,
                                 num_classes=NUM_CLASSES, step_size=0.5,
-                                do_mirroring=True, tta_batch=8, device=device)
+                                do_mirroring=True, tta_batch=8, device=device,
+                                input_dtype=input_dtype)
     return model, sw
 
 
@@ -79,8 +89,9 @@ def volume(seed: int = 0) -> np.ndarray:
     return np.random.RandomState(seed).randn(*VOLUME, 1).astype(np.float32)
 
 
-def profile_main_path(seed: int = 0, trans_block: str = DEFAULT_BLOCK) -> dict:
-    _, sw = build(seed, trans_block=trans_block)
+def profile_main_path(seed: int = 0, trans_block: str = DEFAULT_BLOCK,
+                      input_dtype=None) -> dict:
+    _, sw = build(seed, trans_block=trans_block, input_dtype=input_dtype)
     vol = volume(seed)
     sw.predict_segmentation(vol)  # warm-up
     torch.cuda.synchronize()
@@ -91,13 +102,17 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trans_block", default=DEFAULT_BLOCK,
                     choices=list(TRANSFORMER_BLOCKS))
+    ap.add_argument("--dtype", default="f32", choices=list(DTYPES),
+                    help="the model input's type; bf16 is bench.py's protocol")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print_profile(f"main path {VOLUME}, {TILES} tiles x 8 flips, {args.trans_block}",
-                  profile_main_path(trans_block=args.trans_block))
+    print_profile(f"main path {VOLUME}, {TILES} tiles x 8 flips, {args.trans_block}, "
+                  f"input {args.dtype}",
+                  profile_main_path(trans_block=args.trans_block,
+                                    input_dtype=DTYPES[args.dtype]))
 
 
 if __name__ == "__main__":

@@ -23,17 +23,21 @@ and draws the offset nets' weights from the seed, so that attention and
 the gates shape the logits and the offsets vary per pixel and reach past
 ±1 (at init the encoder's layer scales are 1e-6 and the decoder's 1e-2).
 
-    python -m deformablelka_tpu_torch.main_path2d
+    python -m deformablelka_tpu_torch.main_path2d [--dtype bf16]
 
 runs each configuration's case once to warm up, then once under
 `torch.profiler` on the card, and prints the wall time, the device's busy
 share and the device time by kernel class and by kernel; then the host
 clock of the case's two zooms alone, and the same profile of 10 batch-1
-224² forwards of the flagship (the latency protocol).
+224² forwards of the flagship (the latency protocol). With `--dtype bf16`
+those forwards take a bfloat16 input, as `bench.py:119` does: the stem,
+the first MBConv and the first block's attention run in bfloat16, the
+rest (and kernel 4) in float32. float32 is the default.
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
 import time
 
@@ -126,9 +130,9 @@ def zoom_seconds(seed: int = 0) -> tuple:
     return t1 - t0, time.perf_counter() - t1
 
 
-def profile_latency(seed: int = 0, reps: int = 10) -> dict:
+def profile_latency(seed: int = 0, reps: int = 10, dtype=torch.float32) -> dict:
     model, _ = build("dlka", seed)
-    x = torch.zeros(1, *PATCH, 1, device="cuda")
+    x = torch.zeros(1, *PATCH, 1, device="cuda", dtype=dtype)
 
     def run():
         with torch.no_grad():
@@ -141,6 +145,11 @@ def profile_latency(seed: int = 0, reps: int = 10) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
+                    help="the latency forwards' input type; bf16 is bench.py's")
+    args = ap.parse_args()
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
@@ -151,7 +160,8 @@ def main() -> None:
     zoom_in, zoom_out = zoom_seconds()
     print(f"host zooms of the case {CASE}: to {PATCH} (order 3) {zoom_in:.3f} s, "
           f"labels back (order 0) {zoom_out:.3f} s")
-    print_profile(f"flagship, 10 forwards at batch 1 {PATCH}", profile_latency())
+    print_profile(f"flagship, 10 forwards at batch 1 {PATCH}, input {args.dtype}",
+                  profile_latency(dtype=dtype))
 
 
 if __name__ == "__main__":

@@ -31,7 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deformablelka_tpu_torch.models.dlka_former import _build
-from deformablelka_tpu_torch.nn.layers import Conv2d, Conv3d, StrideConvTranspose
+from deformablelka_tpu_torch.nn.layers import (
+    PromotingConv2d, PromotingConv3d, PromotingStrideConvTranspose)
 from deformablelka_tpu_torch.nn.norms import InstanceNorm
 
 
@@ -41,7 +42,8 @@ def lrelu(x):
 
 def _conv(ndim: int, in_channels: int, out_channels: int, kernel, stride=1,
           padding=0, bias: bool = True) -> nn.Module:
-    return (Conv3d if ndim == 3 else Conv2d)(
+    """flax's `nn.Conv` in the JAX package: a promoting conv."""
+    return (PromotingConv3d if ndim == 3 else PromotingConv2d)(
         in_channels, out_channels, kernel, stride=stride, padding=padding, bias=bias)
 
 
@@ -158,7 +160,7 @@ class GenericUNet(nn.Module):
         self.conv_blocks_localization = nn.ModuleList()
         self.seg_outputs = nn.ModuleList()
         for s in reversed(range(num_pool)):
-            self.tu.append(StrideConvTranspose(feats[s + 1], feats[s], pools[s],
+            self.tu.append(PromotingStrideConvTranspose(feats[s + 1], feats[s], pools[s],
                                                ndim, bias=False))
             self.conv_blocks_localization.append(StagePair(
                 2 * feats[s], feats[s], conv_per_stage, kernels[s], None, residual))

@@ -11,6 +11,15 @@ img_size / 32 (7 at 224²).
 Attention is `torch.matmul` and a softmax in float32, as the JAX package
 leaves it to XLA: it is no Pallas kernel, and plain matmuls keep the
 comparison with the JAX package tight.
+
+On a bfloat16 input the stem, the first MBConv and the first block's
+attention run in bfloat16 and its layer scale promotes to float32, as in
+the JAX package; there the ops round as JAX's do: the sigmoid as
+1 / (1 + exp(−x)) rounded at each step (XLA's expansion of the
+logistic), SiLU as x · sigmoid(x) (`jax.nn.silu`), the 2×2 average pool as
+three additions in order then a division (flax's `avg_pool`, a window
+sum), the attention scale rounded to the input's type (a weak-typed
+Python scalar in JAX). In float32 they are torch's fused ops.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from deformablelka_tpu_torch.nn.layers import Conv2d, Linear, gelu
+from deformablelka_tpu_torch.nn.layers import Conv2d, Linear, gelu, scalar_in
 from deformablelka_tpu_torch.nn.norms import BatchNorm, LayerNorm
 from deformablelka_tpu_torch.ops.convs import to_nchw, to_nhwc
 
@@ -33,6 +42,18 @@ def _make_divisible(v, divisor=8, min_value=None, round_limit=0.9):
     return new_v
 
 
+def sigmoid(x):
+    """jax.nn.sigmoid: in float32 torch's, else 1 / (1 + exp(−x)) with each
+    step rounded to x's type, as XLA expands the logistic."""
+    return torch.sigmoid(x) if x.dtype == torch.float32 else 1 / (1 + torch.exp(-x))
+
+
+def silu(x):
+    """jax.nn.silu, x · sigmoid(x): in float32 torch's fused SiLU, else
+    the product of x and the rounded `sigmoid(x)`."""
+    return F.silu(x) if x.dtype == torch.float32 else x * sigmoid(x)
+
+
 class BNAct(BatchNorm):
     """Batch norm (eval statistics, eps 1e-5), then SiLU if `act`."""
 
@@ -42,7 +63,7 @@ class BNAct(BatchNorm):
 
     def forward(self, x):
         x = super().forward(x)
-        return F.silu(x) if self.act else x
+        return silu(x) if self.act else x
 
 
 class SEModule(nn.Module):
@@ -53,12 +74,18 @@ class SEModule(nn.Module):
 
     def forward(self, x):
         s = x.mean((1, 2), keepdim=True)
-        s = self.fc2(F.silu(self.fc1(s)))
-        return x * torch.sigmoid(s)
+        s = self.fc2(silu(self.fc1(s)))
+        return x * sigmoid(s)
 
 
 def avg_pool2(x):
-    return to_nhwc(F.avg_pool2d(to_nchw(x), 2))
+    """2×2 average pool, stride 2: in float32 torch's, else flax's window
+    sum, the four values added in row-major order (each sum rounded to x's
+    type), divided by 4."""
+    if x.dtype == torch.float32:
+        return to_nhwc(F.avg_pool2d(to_nchw(x), 2))
+    s = x[:, 0::2, 0::2] + x[:, 0::2, 1::2]
+    return (s + x[:, 1::2, 0::2] + x[:, 1::2, 1::2]) / 4
 
 
 class Downsample2d(nn.Module):
@@ -191,7 +218,7 @@ class AttentionCl(nn.Module):
         nh, dh = self.num_heads, self.dim_head
         qkv = self.qkv(x).reshape(B, -1, nh, 3 * dh).transpose(1, 2)
         q, k, v = qkv[..., :dh], qkv[..., dh:2 * dh], qkv[..., 2 * dh:]
-        attn = torch.matmul(q, k.transpose(-1, -2)) * dh ** -0.5
+        attn = torch.matmul(q, k.transpose(-1, -2)) * scalar_in(dh ** -0.5, x.dtype)
         attn = attn + self.rel_pos()[None].to(attn.dtype)
         attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(*lead, C)

@@ -24,9 +24,18 @@ layer1.0.downsample.0`, `vit.blocks.0.mlp.linear1`, `encoder1.layer`,
 torch_loader.convert_vnet`, `convert_resnet34` and `convert_unetr`; each
 module's `jax_renames` maps the JAX package's names onto them
 (`convert/jax_params.py`). The VNet family's deconvs are flax
-`ConvTranspose` in the JAX package (`StrideConvTranspose` here, whose
-JAX kernel is flipped); UNETR's are the repo's own MONAI-style
+`ConvTranspose` in the JAX package (`PromotingStrideConvTranspose` here,
+whose JAX kernel is flipped); UNETR's are the repo's own MONAI-style
 `ConvTranspose` (not flipped).
+
+Types follow the JAX package's. The VNet family's convs and deconvs are
+flax's `nn.Conv` / `nn.ConvTranspose` there, which promote a bfloat16
+input to their float32 weights (the `Promoting*` layers here): VNet runs
+in float32 from its first conv on, and the ResNet34 seg net from its
+decoder's first deconv, its encoder (the repo's own `Conv3d` and batch
+norms) running in the input's type. UNETR's patch embedding and
+`encoder1` run in the input's type; the position embedding and the
+decoder's concatenations promote to float32.
 
 As in the JAX package: the ViT's MLP uses the tanh GELU (flax `nn.gelu`'s
 default; upstream's MONAI block uses the exact one), batch norms read
@@ -47,7 +56,7 @@ import torch.nn.functional as F
 from deformablelka_tpu_torch.models.dat_lka import _trunc_normal_
 from deformablelka_tpu_torch.nn.dynunet import UnetOutBlock, UnetResBlock
 from deformablelka_tpu_torch.nn.layers import (
-    Conv3d, ConvTranspose, Linear, StrideConvTranspose)
+    Conv3d, ConvTranspose, Linear, PromotingConv3d, PromotingStrideConvTranspose)
 from deformablelka_tpu_torch.nn.norms import (
     BatchNorm, GroupNorm, InstanceNorm, LayerNorm)
 
@@ -80,8 +89,9 @@ class ConvBlock(nn.Module):
         ops = []
         for i in range(n_stages):
             ops += _conv_norm_relu(
-                Conv3d(n_filters_in if i == 0 else n_filters_out, n_filters_out,
-                       3, padding=1), normalization, n_filters_out)
+                PromotingConv3d(n_filters_in if i == 0 else n_filters_out,
+                                n_filters_out, 3, padding=1),
+                normalization, n_filters_out)
         self.conv = nn.Sequential(*ops)
         step = len(ops) // n_stages
         self.jax_renames = tuple(
@@ -101,8 +111,8 @@ class DownBlock(nn.Module):
                  normalization: str = "none"):
         super().__init__()
         self.conv = nn.Sequential(*_conv_norm_relu(
-            Conv3d(n_filters_in, n_filters_out, stride, stride=stride,
-                   padding=0), normalization, n_filters_out))
+            PromotingConv3d(n_filters_in, n_filters_out, stride, stride=stride,
+                            padding=0), normalization, n_filters_out))
 
     def forward(self, x):
         return self.conv(x)
@@ -117,7 +127,7 @@ class UpBlock(nn.Module):
                  normalization: str = "none"):
         super().__init__()
         self.conv = nn.Sequential(*_conv_norm_relu(
-            StrideConvTranspose(n_filters_in, n_filters_out, stride),
+            PromotingStrideConvTranspose(n_filters_in, n_filters_out, stride),
             normalization, n_filters_out))
 
     def forward(self, x):
@@ -137,7 +147,7 @@ class _VNetDecoder(nn.Module):
         self.block_eight = ConvBlock(2, nf * 2, nf * 2, normalization)
         self.block_eight_up = UpBlock(nf * 2, nf, 2, normalization)
         self.block_nine = ConvBlock(1, nf, nf, normalization)
-        self.out_conv = Conv3d(nf, n_classes, 1, padding=0)
+        self.out_conv = PromotingConv3d(nf, n_classes, 1, padding=0)
 
     def decode(self, x1, x2, x3, x4, x5):
         x6 = self.block_six(self.block_five_up(x5) + x4)

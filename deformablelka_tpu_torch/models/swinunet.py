@@ -22,7 +22,7 @@ import torch.nn as nn
 
 from deformablelka_tpu_torch.models import maxvit
 from deformablelka_tpu_torch.models.maxvit_dlka import FinalPatchExpand_X4, PatchExpand
-from deformablelka_tpu_torch.nn.layers import Conv2d, Linear
+from deformablelka_tpu_torch.nn.layers import Linear, PromotingConv2d
 from deformablelka_tpu_torch.nn.norms import LayerNorm
 from deformablelka_tpu_torch.nn.segformer import MLP_FFN, attend
 
@@ -149,7 +149,7 @@ def swin_blocks(dim, heads, depth, window_size, mlp_ratio=4.0, clamp_shift=True)
 class PatchEmbed(nn.Module):
     def __init__(self, in_ch: int, dim: int, patch: int = 4):
         super().__init__()
-        self.proj = Conv2d(in_ch, dim, patch, stride=patch, padding=0)
+        self.proj = PromotingConv2d(in_ch, dim, patch, stride=patch, padding=0)
         self.norm = LayerNorm(dim)
 
     def forward(self, x):
@@ -212,7 +212,7 @@ class SwinUNet(nn.Module):
             [nn.Identity()] + [Linear(2 * dims[3 - i], dims[3 - i]) for i in (1, 2, 3)])
         self.norm_up = LayerNorm(dims[0])
         self.up = FinalPatchExpand_X4(dims[0])
-        self.output = Conv2d(dims[0], num_classes, 1, bias=False)
+        self.output = PromotingConv2d(dims[0], num_classes, 1, bias=False)
 
     def forward(self, x):
         if x.shape[-1] == 1:

@@ -5,9 +5,15 @@ and `bias` and laid out as torch's own layers lay them out:
 
   Conv2d.weight        : (Cout, Cin // groups, kh, kw)
   Conv3d.weight        : (Cout, Cin // groups, kd, kh, kw)
-  ConvTranspose.weight : (Cin, Cout, kd, kh, kw)
-  StrideConvTranspose.weight : (Cin, Cout, *stride), 2D or 3D
+  ConvTranspose.weight : (Cin, Cout, [kd,] kh, kw)
+  PromotingStrideConvTranspose.weight : (Cin, Cout, *stride), 2D or 3D
   Linear.weight        : (Cout, Cin)
+
+Types: `Conv2d`, `Conv3d`, `ConvTranspose` and `Linear` are the JAX
+package's own layers and run in their input's type (the weights cast to
+it, `ops/convs.py`); the `Promoting*` layers stand for flax's
+`nn.Conv` / `nn.ConvTranspose`, which promote a bfloat16 input to their
+float32 weights (`ops.convs.promoted`).
 
 Initialisation draws from the same distributions as the JAX package
 (torch's defaults: U(±1/sqrt(fan_in)) for weight and bias) from an
@@ -16,6 +22,7 @@ explicit `torch.Generator`; see `init_parameters`.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -94,14 +101,30 @@ class Conv3d(nn.Module):
                         groups=self.groups)
 
 
+class PromotingConv2d(Conv2d):
+    """`Conv2d` standing for flax's `nn.Conv`: the input promoted to the
+    weights' type first."""
+
+    def forward(self, x):
+        return super().forward(C.promoted(x, self.weight, self.bias))
+
+
+class PromotingConv3d(Conv3d):
+    """`Conv3d` standing for flax's `nn.Conv`: the input promoted to the
+    weights' type first."""
+
+    def forward(self, x):
+        return super().forward(C.promoted(x, self.weight, self.bias))
+
+
 class ConvTranspose(nn.Module):
-    """Transposed 3D conv with MONAI's padding rules (output = input ×
-    stride)."""
+    """Transposed 3D (or, with `ndim=2`, 2D) conv with MONAI's padding
+    rules (output = input × stride)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
-                 stride, bias: bool = True):
+                 stride, bias: bool = True, ndim: int = 3):
         super().__init__()
-        ks = C._tuple(kernel_size, 3)
+        ks = C._tuple(kernel_size, ndim)
         self.stride = stride
         self.weight = nn.Parameter(torch.empty(in_channels, out_channels, *ks))
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
@@ -118,12 +141,13 @@ class ConvTranspose(nn.Module):
         return C.conv_transpose(x, self.weight, self.bias, stride=self.stride)
 
 
-class StrideConvTranspose(nn.Module):
+class PromotingStrideConvTranspose(nn.Module):
     """Transposed 2D or 3D conv whose kernel is its stride (no overlap, no
     padding), as torch's `ConvTranspose{2,3}d(Cin, Cout, s, stride=s)`:
     (B, *S, Cin) → (B, *S·s, Cout). Its JAX counterpart is flax's
-    `nn.ConvTranspose`, which correlates where torch convolves, so the JAX
-    kernel is this weight flipped in space (`jax_kernel_flipped`, read by
+    `nn.ConvTranspose`: it promotes its input to the weights' type, and it
+    correlates where torch convolves, so the JAX kernel is this weight
+    flipped in space (`jax_kernel_flipped`, read by
     `convert/jax_params.py`)."""
 
     jax_kernel_flipped = True
@@ -144,6 +168,7 @@ class StrideConvTranspose(nn.Module):
             _uniform_(self.bias, bound, generator)
 
     def forward(self, x):
+        x = C.promoted(x, self.weight, self.bias)
         if len(self.stride) == 3:
             return C.to_ndhwc(F.conv_transpose3d(
                 C.to_ncdhw(x), self.weight, self.bias, self.stride))
@@ -165,7 +190,8 @@ class Linear(nn.Module):
             _uniform_(self.bias, bound, generator)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        w, bias, after = C.in_input_type(x, self.weight, self.bias)
+        return C.add_bias(F.linear(x, w, bias), after)
 
 
 class DropPath(nn.Module):
@@ -180,6 +206,15 @@ class DropPath(nn.Module):
         if self.rate and self.training:
             raise NotImplementedError("DropPath in training mode is not ported")
         return x
+
+
+@functools.lru_cache(maxsize=None)
+def scalar_in(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`: JAX casts a Python scalar (a weak type)
+    to the array's type before it multiplies, so `0.01 * x` of a bfloat16
+    `x` multiplies by bfloat16(0.01); torch would multiply by the float32
+    value. Exact in float32."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def gelu(x):

@@ -9,6 +9,14 @@ so. A channels-last tensor seen through `permute(0, 4, 1, 2, 3)` is a
 `channels_last_3d` NCDHW tensor (and through `permute(0, 3, 1, 2)` a
 `channels_last` NCHW one), so no copy is made on the way in or out.
 
+Types follow the JAX module's rule: each conv casts its weight and bias
+to the input's type (`w.astype(x.dtype)`), so a bfloat16 input runs the
+conv in bfloat16 and returns bfloat16. In float32 the bias goes into the
+conv call; in a narrower type it is added after the conv, rounded, as the
+JAX module adds it (`out + bias.astype(out.dtype)`). The layers that
+stand for flax's own `nn.Conv` / `nn.ConvTranspose` follow flax's rule
+instead, `promoted`: a bfloat16 input meets float32 weights in float32.
+
 The TPU rewrites of the JAX module (s2d, im2col, z-decomposed and
 à-trous depthwise, depth-to-space transposed conv) compute the same
 functions and have no counterpart here.
@@ -43,6 +51,35 @@ def same_padding(kernel_size, stride, dilation=1, ndim: int | None = None):
     return pads
 
 
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+def in_input_type(x, w, bias):
+    """(w, the bias to pass to the conv call, the bias to add after it),
+    as the JAX package's convs and `Linear` take them: w in x's type; the
+    bias in the call for float32, else after the call in x's type."""
+    w = w.to(x.dtype)
+    if bias is None or x.dtype not in _NARROW:
+        return w, bias, None
+    return w, None, bias.to(x.dtype)
+
+
+def add_bias(y, bias):
+    return y if bias is None else y + bias
+
+
+def promoted(x, *params):
+    """x in the type it promotes to with `params` (None skipped): flax's
+    rule for its own layers (`promote_dtype`), under which a bfloat16
+    input meets float32 weights in float32. The layers that stand for
+    flax's `nn.Conv` or `nn.ConvTranspose` apply it."""
+    dtype = x.dtype
+    for p in params:
+        if p is not None:
+            dtype = torch.promote_types(dtype, p.dtype)
+    return x.to(dtype)
+
+
 def to_ncdhw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 4, 1, 2, 3)
 
@@ -61,8 +98,9 @@ def conv3d(x, w, bias=None, *, stride=1, padding="same", dilation=1,
         pad = tuple(lo for lo, _ in same_padding(tuple(w.shape[2:]), st, dil, 3))
     else:
         pad = _tuple(padding, 3)
+    w, bias, after = in_input_type(x, w, bias)
     y = F.conv3d(to_ncdhw(x), w, bias, st, pad, dil, groups)
-    return to_ndhwc(y)
+    return add_bias(to_ndhwc(y), after)
 
 
 def depthwise_conv3d(x, w, bias=None, *, stride=1, padding="same",
@@ -90,7 +128,9 @@ def conv2d(x, w, bias=None, *, stride=1, padding="same", dilation=1,
         pad = tuple(lo for lo, _ in same_padding(tuple(w.shape[2:]), st, dil, 2))
     else:
         pad = _tuple(padding, 2)
-    return to_nhwc(F.conv2d(to_nchw(x), w, bias, st, pad, dil, groups))
+    w, bias, after = in_input_type(x, w, bias)
+    return add_bias(to_nhwc(F.conv2d(to_nchw(x), w, bias, st, pad, dil, groups)),
+                    after)
 
 
 def depthwise_conv2d(x, w, bias=None, *, stride=1, padding="same",
@@ -101,20 +141,26 @@ def depthwise_conv2d(x, w, bias=None, *, stride=1, padding="same",
 
 
 def conv_transpose(x, w, bias=None, *, stride):
-    """Transposed 3D conv as torch's ConvTranspose3d with padding
-    (k - s + 1) // 2 and output_padding 2p + s - k (MONAI
-    `get_conv_layer`), so the output size is input × stride.
-    x: (B, D, H, W, Cin); w: (Cin, Cout, kd, kh, kw)."""
+    """Transposed 2D or 3D conv (by the input's rank) as torch's
+    ConvTranspose{2,3}d with padding (k - s + 1) // 2 and output_padding
+    2p + s - k (MONAI `get_conv_layer`), so the output size is input ×
+    stride. x: (B, *S, Cin); w: (Cin, Cout, *k)."""
+    nd = x.ndim - 2
     ks = tuple(w.shape[2:])
-    st = _tuple(stride, 3)
-    pad = [lo for lo, _ in same_padding(ks, st, 1, 3)]
+    st = _tuple(stride, nd)
+    pad = [lo for lo, _ in same_padding(ks, st, 1, nd)]
     out_pad = [2 * p + s - k for p, s, k in zip(pad, st, ks)]
     if any(op < 0 for op in out_pad):
         raise ValueError("negative output padding")
-    y = F.conv_transpose3d(to_ncdhw(x), w, bias, st, pad, out_pad)
-    return to_ndhwc(y)
+    w, bias, after = in_input_type(x, w, bias)
+    if nd == 3:
+        y = to_ndhwc(F.conv_transpose3d(to_ncdhw(x), w, bias, st, pad, out_pad))
+    else:
+        y = to_nhwc(F.conv_transpose2d(to_nchw(x), w, bias, st, pad, out_pad))
+    return add_bias(y, after)
 
 
-__all__ = ["same_padding", "conv2d", "depthwise_conv2d", "conv3d",
+__all__ = ["same_padding", "in_input_type", "add_bias", "promoted", "conv2d",
+           "depthwise_conv2d", "conv3d",
            "depthwise_conv3d", "conv_transpose", "to_nchw", "to_nhwc",
            "to_ncdhw", "to_ndhwc"]

@@ -9,8 +9,9 @@ remat=True)` at full width and depth (21 D-LKA blocks), batch 2 at patch
 driven as `main_path.drive_gates` does (gamma 1, offset-conv weights drawn
 from the seed), so the offsets reach past ±1 and the gate gradients are not
 scaled by 1e-6. The image is seeded f32 noise and the labels seeded int64
-in [0, 14). The JAX bench feeds bf16; the port trains in f32 (TF32 off
-where the caller turns it off, as `main` does).
+in [0, 14). The step runs in float32, TF32 off where the caller turns it
+off, as `main` does. (`bench.py`'s own step feeds a bfloat16 image; the
+benchmark's training cell takes that up.)
 
 With remat, each step launches the deform and chain kernels twice per
 block (forward and recompute: 42 each) and the deform backward kernel once

@@ -1,10 +1,11 @@
 """The losses of the 3D and 2D training steps, channels-last.
 
-Port of the parts of `deformablelka_tpu/training/losses.py` that the
-trainers use: nnUNet's soft Dice (batch dice, background dropped, smooth
-1e-5) plus cross-entropy, the deep-supervision sum with weights 1/2^i
-normalised over order-0 downsampled label maps, the poly learning-rate
-schedule, and the 2D trainer's 0.4·CE + 0.6·Dice (`dice_ce_2d_loss`).
+Port of `deformablelka_tpu/training/losses.py`: nnUNet's soft Dice (batch
+dice, background dropped, smooth 1e-5) plus cross-entropy, the
+deep-supervision sum with weights 1/2^i normalised over order-0
+downsampled label maps, the poly learning-rate schedule, the 2D trainer's
+0.4·CE + 0.6·Dice (`dice_ce_2d_loss`), and nnUNet's other losses: the
+squared soft Dice, the generalised Dice and the top-k cross-entropy.
 Logits are (B, *S, C), labels (B, *S) integers; every loss is computed
 in float32.
 """
@@ -53,6 +54,52 @@ class SoftDiceLoss:
         if not self.do_bg:
             dc = dc[..., 1:]
         return -dc.mean()
+
+
+def soft_dice_squared(logits, labels, smooth=1e-5, do_bg=False,
+                      batch_dice=True):
+    """SoftDiceLossSquared (dice_loss.py:245): the denominator sums p² + y²."""
+    C = logits.shape[-1]
+    probs = softmax_helper(logits)
+    y = one_hot(labels, C)
+    axes = tuple(range(1, logits.ndim - 1))
+    if batch_dice:
+        axes = (0,) + axes
+    inter = (probs * y).sum(axes)
+    denom = (probs * probs + y * y).sum(axes)
+    dc = (2 * inter + smooth) / (denom + smooth)
+    if not do_bg:
+        dc = dc[..., 1:]
+    return -dc.mean()
+
+
+def generalized_dice_loss(logits, labels, smooth=1e-5, do_bg=True,
+                          square_volumes=True):
+    """GDL (dice_loss.py:25): class weights 1/volume² (1/volume unless
+    `square_volumes`), volumes over the whole batch."""
+    C = logits.shape[-1]
+    probs = softmax_helper(logits)
+    y = one_hot(labels, C)
+    axes = (0,) + tuple(range(1, logits.ndim - 1))
+    if not do_bg:
+        probs, y = probs[..., 1:], y[..., 1:]
+    vol = y.sum(axes)
+    w = 1.0 / (vol * vol if square_volumes else vol).clamp(min=1e-6)
+    tp = (probs * y).sum(axes) * w
+    fp = (probs * (1 - y)).sum(axes) * w
+    fn = ((1 - probs) * y).sum(axes) * w
+    dc = (2 * tp.sum() + smooth) / (2 * tp.sum() + fp.sum() + fn.sum() + smooth)
+    return -dc
+
+
+def topk_cross_entropy(logits, labels, k_percent=10.0):
+    """TopK loss (TopK_loss.py): the mean cross-entropy of the hardest
+    k % of the voxels (at least one)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    flat = ll.reshape(-1)
+    k = max(1, int(flat.shape[0] * k_percent / 100))
+    return torch.topk(flat, k).values.mean()
 
 
 def cross_entropy(logits, labels, loss_mask=None):

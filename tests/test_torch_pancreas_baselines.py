@@ -218,8 +218,9 @@ def test_train_and_test_pancreas_clis_with_vnet(tmp_path):
     assert (run_dir / "d_lka_former_iter_2").is_dir()
     avg = test_cli.main([*common, "--model_dir", str(run_dir),
                          "--checkpoint", "d_lka_former_iter_2"])
+    # the CLI feeds its model bfloat16, as the JAX CLI does
     sw = tpan.make_pancreas_sliding_window(trainer.model.eval(), patch_size=PATCH,
-                                           device="cpu")
+                                           device="cpu", input_dtype=torch.bfloat16)
     np.testing.assert_array_equal(
         avg, tpan.test_all_case(sw, [(name, image, label)], verbose=False))
     assert np.all(np.isfinite(avg)) and 0 <= avg[0] <= 1

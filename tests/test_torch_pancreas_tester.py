@@ -93,7 +93,9 @@ def test_cli_runs_an_h5_fold(carried, tmp_path):
     avg = tcli.main(["--root_path", str(tmp_path), "--model_dir", str(tmp_path / "run"),
                      "--patch_size", *map(str, PATCH), "--trans_block", BLOCK,
                      "--device", "cpu"])
-    tsw = tpan.make_pancreas_sliding_window(tm, patch_size=PATCH, device="cpu")
+    # the CLI feeds its model bfloat16, as the JAX CLI does
+    tsw = tpan.make_pancreas_sliding_window(tm, patch_size=PATCH, device="cpu",
+                                            input_dtype=torch.bfloat16)
     np.testing.assert_array_equal(
         avg, tpan.test_all_case(tsw, [(name, image, label)], verbose=False))
 
