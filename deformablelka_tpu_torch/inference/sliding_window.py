@@ -26,6 +26,11 @@ to it on the host before it goes to the device and is tiled, so the
 upload, the tiles and the model's input are in that type; the softmax and
 the blending stay in float32. The JAX tester, `-val` and the bench feed
 their models bfloat16.
+
+Each volume is one span `dlka.window` (`profiling.span`), whether it
+comes through `predict` or `predict_segmentation`: `.upload`, a `.tile`
+per tile (`.flip`, `.forward`, `.tta` per batch of flips, then
+`.blend`), `.normalize`, `.argmax` and `.fetch`.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from scipy.ndimage import gaussian_filter
+
+from deformablelka_tpu_torch.profiling import span
 
 
 def compute_steps(patch_size, image_size, step_size: float):
@@ -126,12 +133,16 @@ def mirror_tta_softmax(apply_fn: Callable, tile: torch.Tensor, mirror_axes,
     acc = None
     for i in range(0, len(combos), b):
         chunk = combos[i:i + b]
-        batch = torch.cat([torch.flip(tile, [a + 1 for a in c]) if c else tile
-                           for c in chunk]).contiguous()
-        prob = head(apply_fn(batch))
-        prob = sum(torch.flip(prob[j], list(c)) if c else prob[j]
-                   for j, c in enumerate(chunk))
-        acc = prob if acc is None else acc + prob
+        with span("dlka.window.flip"):
+            batch = torch.cat([torch.flip(tile, [a + 1 for a in c]) if c else tile
+                               for c in chunk]).contiguous()
+        with span("dlka.window.forward"):
+            logits = apply_fn(batch)
+        with span("dlka.window.tta"):
+            prob = head(logits)
+            prob = sum(torch.flip(prob[j], list(c)) if c else prob[j]
+                       for j, c in enumerate(chunk))
+            acc = prob if acc is None else acc + prob
     return acc / len(combos)
 
 
@@ -199,6 +210,53 @@ class SlidingWindowInference:
         i = self.mesh.coordinate(self.mesh_axis)
         return origins[i * per:(i + 1) * per]
 
+    def _window(self, volume: np.ndarray):
+        """(origins, the volume's unit span `dlka.window`)."""
+        padded = tuple(max(s, p) for s, p in zip(volume.shape[:3], self.patch_size))
+        origins = self.origins(padded)
+        return origins, span("dlka.window", unit=True, shape=padded,
+                             tiles=len(self.local_origins(origins)))
+
+    def _probs(self, volume: np.ndarray, origins, do_mirroring: bool):
+        """The padded probabilities on the device and the crop slicer."""
+        with span("dlka.window.upload"):
+            data, slicer = pad_to_min(volume.astype(np.float32, copy=False),
+                                      self.patch_size)
+            padded_shape = data.shape[:3]
+            if self.use_gaussian and len(origins) > 1:
+                gauss = gaussian_importance_map(self.patch_size)
+            else:
+                gauss = np.ones(self.patch_size, np.float32)
+            dev = self.device
+            data = torch.from_numpy(data)
+            if self.input_dtype is not None:
+                data = data.to(self.input_dtype)
+            data = data.to(dev)
+            gauss = torch.from_numpy(gauss).to(dev)
+            num = torch.zeros(*padded_shape, self.num_classes, device=dev)
+            den = torch.zeros(padded_shape, device=dev)
+        for o in self.local_origins(origins):
+            with span("dlka.window.tile"):
+                sl = tuple(slice(s, s + p) for s, p in zip(o, self.patch_size))
+                prob = mirror_tta_softmax(self.apply_fn, data[sl][None],
+                                          self.mirror_axes, do_mirroring,
+                                          self.tta_batch)
+                with span("dlka.window.blend"):
+                    num[sl] += prob * gauss[..., None]
+                    den[sl] += gauss
+        with span("dlka.window.normalize"):
+            if self.mesh is not None:
+                group = self.mesh.group(self.mesh_axis)
+                dist.all_reduce(num, group=group)
+                dist.all_reduce(den, group=group)
+            probs = num / den[..., None]
+        return probs, tuple(slicer)
+
+    @staticmethod
+    def _fetch(t: torch.Tensor) -> np.ndarray:
+        with span("dlka.window.fetch"):
+            return t.cpu().numpy()
+
     @torch.no_grad()
     def predict(self, volume: np.ndarray, do_mirroring: bool | None = None,
                 return_device: bool = False):
@@ -208,40 +266,19 @@ class SlidingWindowInference:
         for this call only."""
         if do_mirroring is None:
             do_mirroring = self.do_mirroring
-        data, slicer = pad_to_min(volume.astype(np.float32, copy=False),
-                                  self.patch_size)
-        padded_shape = data.shape[:3]
-        origins = self.origins(padded_shape)
-        if self.use_gaussian and len(origins) > 1:
-            gauss = gaussian_importance_map(self.patch_size)
-        else:
-            gauss = np.ones(self.patch_size, np.float32)
-        dev = self.device
-        data = torch.from_numpy(data)
-        if self.input_dtype is not None:
-            data = data.to(self.input_dtype)
-        data = data.to(dev)
-        gauss = torch.from_numpy(gauss).to(dev)
-        num = torch.zeros(*padded_shape, self.num_classes, device=dev)
-        den = torch.zeros(padded_shape, device=dev)
-        for o in self.local_origins(origins):
-            sl = tuple(slice(s, s + p) for s, p in zip(o, self.patch_size))
-            prob = mirror_tta_softmax(self.apply_fn, data[sl][None],
-                                      self.mirror_axes, do_mirroring,
-                                      self.tta_batch)
-            num[sl] += prob * gauss[..., None]
-            den[sl] += gauss
-        if self.mesh is not None:
-            group = self.mesh.group(self.mesh_axis)
-            dist.all_reduce(num, group=group)
-            dist.all_reduce(den, group=group)
-        probs = num / den[..., None]
-        if return_device:
-            return probs, tuple(slicer)
-        return probs.cpu().numpy()[tuple(slicer)]
+        origins, window = self._window(volume)
+        with window:
+            probs, slicer = self._probs(volume, origins, do_mirroring)
+            if return_device:
+                return probs, slicer
+            return self._fetch(probs)[slicer]
 
+    @torch.no_grad()
     def predict_segmentation(self, volume: np.ndarray) -> np.ndarray:
         """Argmax on the device; only the uint8 labels come to the host."""
-        probs, slicer = self.predict(volume, return_device=True)
-        labels = torch.argmax(probs, dim=-1).to(torch.uint8)
-        return labels.cpu().numpy()[slicer]
+        origins, window = self._window(volume)
+        with window:
+            probs, slicer = self._probs(volume, origins, self.do_mirroring)
+            with span("dlka.window.argmax"):
+                labels = torch.argmax(probs, dim=-1).to(torch.uint8)
+            return self._fetch(labels)[slicer]

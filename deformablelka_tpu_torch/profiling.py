@@ -2,16 +2,112 @@
 the training path and the 2D path: `torch.profiler` records the run, and its CUDA
 kernels are summed by name and by class (the hand kernels, cuDNN/cuBLAS,
 the rest); `timed`, the host clock of each call of a function, which
-the trainers' recorders wrap around their pieces; and `cold_ms`, a call's
-time on the card with the L2 cache flushed before it.
+the trainers' recorders wrap around their pieces; `cold_ms`, a call's
+time on the card with the L2 cache flushed before it; and the program's
+own spans (`span`, `spans`).
+
+Spans. `span(name, unit=False, **args)` marks a stretch of the program.
+It records only while a `torch.profiler` session records (the flag the
+profiler sets, read once per span); otherwise it is one shared no-op
+context. A recording span is a `record_function` range on the profiler's
+host timeline, under which the kernels launched inside it hang, and a
+`SpanRecord` in a bounded buffer (`spans()`): its name, its parent, the
+index of its unit span and, on CUDA, two timing events recorded on the
+current stream. A span never synchronises: read the events
+(`elapsed_time`) after the profiled stretch has ended. A unit span
+(`unit=True`: a training step, a volume through the sliding window)
+stores at exit what every hand kernel's `.launches` added while it was
+open.
+
+| span | opened by |
+|---|---|
+| `dlka.step` (unit) > `.forward`, `.loss`, `.backward`, `.clip`, `.update` | `training/train_step.make_train_step`'s step |
+| `dlka.window` (unit) > `.upload`, `.tile` (> `.flip`, `.forward`, `.tta`, `.blend`), `.normalize`, `.argmax`, `.fetch` | `inference/sliding_window.SlidingWindowInference` |
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+SPAN_LIMIT = 1 << 16          # records kept; the oldest go first
+
+_OFF = contextlib.nullcontext()
+_records: deque = deque(maxlen=SPAN_LIMIT)
+_open: list = []              # the recording spans open now, innermost last
+_units = 0                    # unit spans opened since `reset_spans`
+
+
+class SpanRecord:
+    """One recorded span, and the context that records it. `unit_span`
+    marks a unit span and `unit` is the index of the unit it lies in;
+    `start` and `end` are CUDA timing events (None off CUDA); `launches`
+    is set on a unit span at exit: {hand kernel wrapper: launches}."""
+
+    __slots__ = ("name", "args", "unit_span", "parent", "unit", "start", "end",
+                 "launches", "_range", "_before")
+
+    def __init__(self, name: str, unit_span: bool, args: dict):
+        self.name, self.unit_span, self.args = name, unit_span, args
+        self.parent = self.unit = self.start = self.end = self.launches = None
+
+    def __enter__(self):
+        global _units
+        self.parent = _open[-1] if _open else None
+        if self.unit_span:
+            from deformablelka_tpu_torch.ops import kernels
+
+            self.unit, _units = _units, _units + 1
+            self._before = kernels.launch_counts()
+        elif self.parent is not None:
+            self.unit = self.parent.unit
+        self._range = torch.profiler.record_function(
+            self.name, ", ".join(f"{k}={v}" for k, v in self.args.items()) or None)
+        self._range.__enter__()
+        if torch.cuda.is_initialized():
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        _records.append(self)
+        _open.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        if self.end is not None:
+            self.end.record()
+        if self.unit_span:
+            from deformablelka_tpu_torch.ops import kernels
+
+            self.launches = {k: v - self._before[k] for k, v in kernels.launch_counts().items()
+                             if v != self._before[k]}
+        _open.pop()
+        self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str, unit: bool = False, **args):
+    """A context manager marking `name` (a unit span if `unit`): a
+    recording span while a `torch.profiler` session records, else the
+    shared no-op `_OFF`."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return SpanRecord(name, unit, args)
+
+
+def spans() -> list:
+    """The span records kept, in the order the spans were entered."""
+    return list(_records)
+
+
+def reset_spans() -> None:
+    """Forgets the span records and restarts the unit index."""
+    global _units
+    _records.clear()
+    _units = 0
 
 
 def timed(fn, times: list):
@@ -81,7 +177,9 @@ def device_profile(run) -> dict:
     device activity for a run of a few short kernels; the run is then
     profiled again, up to `PROFILE_ATTEMPTS` times in all, and an error
     raised if none recorded any. `by_name`: device ms by kernel name, the
-    whole run."""
+    whole run. The ranges that `record_function` (and so `span`) mirrors
+    onto the device's timeline are user annotations, not kernels, and are
+    left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -91,18 +189,18 @@ def device_profile(run) -> dict:
             run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        spans, by_name = [], defaultdict(float)
+        intervals, by_name = [], defaultdict(float)
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                spans.append((e.time_range.start, e.time_range.end))
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+                intervals.append((e.time_range.start, e.time_range.end))
                 by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
-        if spans:
+        if intervals:
             break
     else:
         raise RuntimeError(f"the profiler recorded no device activity in "
                            f"{PROFILE_ATTEMPTS} runs")
     busy, end = 0.0, -1.0
-    for s, t in sorted(spans):
+    for s, t in sorted(intervals):
         if t > end:
             busy += t - max(s, end)
             end = t
@@ -110,7 +208,7 @@ def device_profile(run) -> dict:
     for name, ms in by_name.items():
         by_class[kernel_class(name)] += ms
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
-            "kernel_ms": sum(by_name.values()), "n_kernels": len(spans),
+            "kernel_ms": sum(by_name.values()), "n_kernels": len(intervals),
             "by_class": dict(by_class), "by_name": dict(by_name),
             "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:15]}
 

@@ -46,11 +46,13 @@ trainer uses it.
 from __future__ import annotations
 
 import functools
+import itertools
 
 import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
 
+from deformablelka_tpu_torch.profiling import span
 from deformablelka_tpu_torch.training.losses import (deep_supervision_loss, one_hot,
                                                      softmax_helper)
 
@@ -83,8 +85,12 @@ def clip_grad_norm(params) -> torch.Tensor:
 
 def loss_of(model: torch.nn.Module, image, label):
     """The deep-supervision Dice + CE loss on one batch: image (B, *S, Cin),
-    label (B, *S) int."""
-    return deep_supervision_loss(model(image), label)
+    label (B, *S) int; the model's forward and the loss in the spans
+    `dlka.step.forward` and `dlka.step.loss`."""
+    with span("dlka.step.forward"):
+        out = model(image)
+    with span("dlka.step.loss"):
+        return deep_supervision_loss(out, label)
 
 
 def global_dc_and_ce_loss(logits, labels, group=None):
@@ -130,24 +136,34 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.SGD, mesh=Non
     the step updates the model's parameters in place. With `mesh`, image
     and label are this rank's part of the global batch along `axis`, and
     the loss, the gradient and the update are the global batch's (the
-    module docstring)."""
+    module docstring). The step opens the span `dlka.step` and its
+    phases `.forward`, `.loss`, `.backward` (with the mesh's gradient
+    sum), `.clip` and `.update` (`profiling.span`)."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     group = None if mesh is None else mesh.group(axis)
+    loss_fn = None if group is None else functools.partial(global_dc_and_ce_loss, group=group)
+    calls = itertools.count()
 
     def step(image, label):
-        optimizer.zero_grad()
-        if group is None:
-            loss = loss_of(model, image, label)
-            loss.backward()
-        else:
-            share = deep_supervision_loss(
-                model(image), label, functools.partial(global_dc_and_ce_loss, group=group))
-            share.backward()
-            sum_gradients(params, group)
-            loss = share.detach().clone()
-            dist.all_reduce(loss, group=group)
-        grad_norm = clip_grad_norm(params)
-        optimizer.step()
+        with span("dlka.step", unit=True, step=next(calls)):
+            optimizer.zero_grad()
+            if group is None:
+                loss = share = loss_of(model, image, label)
+            else:
+                with span("dlka.step.forward"):
+                    out = model(image)
+                with span("dlka.step.loss"):
+                    share = deep_supervision_loss(out, label, loss_fn)
+                    loss = share.detach().clone()
+                    dist.all_reduce(loss, group=group)
+            with span("dlka.step.backward"):
+                share.backward()
+                if group is not None:
+                    sum_gradients(params, group)
+            with span("dlka.step.clip"):
+                grad_norm = clip_grad_norm(params)
+            with span("dlka.step.update"):
+                optimizer.step()
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return step
