@@ -40,6 +40,15 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    (`torch.nn.grad.conv3d_input` + `conv3d_weight`, the Δ = 0 channel
    mixes alone: not the same function, and no PyTorch call computes a
    deformable-conv backward, so no library time);
+5b. the chain backward kernel (`dw_chain3d_bwd`) against autograd of the
+   plain chain at the four stage shapes with batch 2, TF32 off: max|err|
+   of dx, dw_dw, db_dw, dw_dil and db_dil against the stated tolerance,
+   two calls bitwise equal, the kernel's times (CUDA events and device
+   time), the plain version's (the plain chain's backward alone), the
+   bound (twice the forward's in-volume taps, as `portbench/counts.py`
+   counts the operations; x and g read and dx written once, with the
+   weights and their gradients) and a yardstick, the parent's path (the plain chain
+   recomputed and differentiated on cuDNN), per launch and per step;
 6. the small training step, CUDA against CPU: one step of the training
    path at img_size (16, 32, 32), batch 2, deep supervision, remat, from
    the same init and batch on both: loss, grad norm, the gradients tensor
@@ -49,13 +58,13 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
 7. the training path (`train_path.py`, the step of `bench.py:59-106`) at
    full size: 3 steps, printing s/step (median of steps 2-3), peak device
    memory, the losses (finite) and the launches per step (42 deform and
-   42 chain forwards, 21 deform backwards with remat); then step 1 again
-   from the same init through the plain versions: the loss within 1e-5
+   42 chain forwards, 21 deform and 21 chain backwards with remat); then
+   step 1 again from the same init through the plain versions: the loss within 1e-5
    relative, every parameter tensor's gradient within ‖Δg‖ ≤ 1.5e-2·‖g‖ and
    the whole gradient within 1e-3 (beside the same comparison of the plain
    step with itself on an image scaled by 1 + 1e-7: its noise floor), all
    gradients finite and every `conv_offset.weight` gradient nonzero; and
-   the deform backward kernel's device time in one more step under
+   the two backward kernels' device time in one more step under
    torch.profiler;
 8. the 2D kernels against their plain versions at the three decoder
    shapes of the 2D path (14²×384, 28²×192, 56²×96) with batch 24, TF32
@@ -674,6 +683,99 @@ def phase_backward_kernel():
     return rows
 
 
+def _chain_bwd_work(B, S, C) -> dict:
+    """The chain backward's least work at one call: twice the forward's
+    in-volume taps (the multiply-adds of dw_dil's and da's, then dw_dw's
+    and dx's, as `portbench/counts.py` counts the backward), and the bytes
+    it has to move: x and g read and dx written once, the weights and b_dw
+    read, their five gradients written. Beside them, the kernel's own
+    multiply-adds (every tap of its three passes and two tap sums,
+    zero-padded ones too, and the recompute of a), printed, not a bound."""
+    V = S ** 3
+    return {"bytes": 4 * (3 * B * V * C + (2 * (125 + 343) + 3) * C),
+            "flops": 4 * B * C * (in_volume_taps(S, 5, 1) + in_volume_taps(S, 7, 3)),
+            "kernel_flops": 2 * B * V * C * (3 * 125 + 2 * 343)}
+
+
+def phase_chain_backward_kernel():
+    """Phase 5b: the chain backward kernel against autograd of the plain
+    chain at the four stage shapes (B=2), per tensor, and its times."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4322)
+    rows = []
+    for S, C, sites in STAGES:
+        B = TRAIN_BATCH
+        args = (torch.randn(B, S, S, S, C, device=dev, generator=gen),
+                torch.randn(5, 5, 5, 1, C, device=dev, generator=gen) / 125 ** 0.5,
+                torch.randn(C, device=dev, generator=gen) * 0.1,
+                torch.randn(7, 7, 7, 1, C, device=dev, generator=gen) / 343 ** 0.5,
+                torch.randn(C, device=dev, generator=gen) * 0.1)
+        gy = torch.randn(B, S, S, S, C, device=dev, generator=gen)
+        leaves = [a.clone().requires_grad_() for a in args]
+        y = chain_plain(*leaves)
+        plain = lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True)
+        ref = plain()
+        got = kernels.dw_chain3d_bwd(*args, gy)
+        torch.cuda.synchronize()
+        report = {}
+        ok = all([_rel_close(n, a, r, report) for n, a, r in
+                  zip(("dx", "dw_dw", "db_dw", "dw_dil", "db_dil"), got, ref)])
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, kernels.dw_chain3d_bwd(*args, gy)))
+        del got, ref
+        kernel = lambda: kernels.dw_chain3d_bwd(*args, gy)
+        ms = timed_ms(kernel, 20)
+        prof = device_profile(lambda: [kernel() for _ in range(20)])
+        dms = prof["by_class"]["dw_chain3d_bwd (hand kernel)"] / 20
+        # the passes apart: a = dw5(x) + b5 (<5, 1, ·, false, false>), da
+        # and dw7's parts (<7, 3, ...>), dx and dw5's (<5, 1, ·, true, true>), the sum
+        passes = {"a": 0.0, "da, dw7": 0.0, "dx, dw5": 0.0, "sum": 0.0}
+        for name, t in prof["by_name"].items():
+            key = ("sum" if "bwd_sum" in name else "da, dw7" if "<7, 3" in name
+                   else "a" if "false, false" in name else "dx, dw5")
+            if "dw_chain3d_bwd" in name:
+                passes[key] += t / 20
+        pms = timed_ms(plain, 3, warmup=1)
+
+        def parent_path():  # `_PlainVjp`'s backward: the plain chain again, its VJP
+            inputs = [a.detach().requires_grad_() for a in args]
+            with torch.enable_grad():
+                return torch.autograd.grad(chain_plain(*inputs), inputs, gy)
+
+        yms = timed_ms(parent_path, 3, warmup=1)
+        ydms = device_ms(parent_path, 3)
+        work = _chain_bwd_work(B, S, C)
+        bnd = bound_ms(work["bytes"], work["flops"])
+        bms, by = _bound(bnd)
+        err = max(e for e, _ in report.values())
+        rows.append(dict(S=S, C=C, sites=sites, err=err, ms=ms, plain_ms=pms, lib_ms=None,
+                         device_ms=dms, yardstick_ms=yms, yardstick_device_ms=ydms, **bnd))
+        split = ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+        errs = ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in report.items())
+        print(f"phase 5b dw_chain3d_bwd B={B} {S}^3 C={C}: max|err| {errs}; two calls "
+              f"bitwise equal {bitwise}; kernel {ms:.4f} ms (device {dms:.4f}: {split}), plain "
+              f"(autograd of the plain chain, its backward alone) {pms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}; 2x the forward's in-volume taps; x, g, dx once), "
+              f"the kernel's own multiply-adds at 67 TFLOP/s "
+              f"{work['kernel_flops'] / F32_FLOP_PER_S * 1e3:.4f} ms; yardstick, the "
+              f"parent's path (the plain chain recomputed and its VJP on cuDNN) {yms:.4f} ms "
+              f"(device {ydms:.4f})", flush=True)
+        if not (ok and bitwise):
+            fail(f"dw_chain3d_bwd disagrees with its plain version at {S}^3 C={C}, or "
+                 "two calls differ")
+        del args, gy, leaves, y
+        torch.cuda.empty_cache()
+    per_step = {k: sum(r["sites"] * r[k] for r in rows)
+                for k in ("ms", "device_ms", "plain_ms", "yardstick_ms", "yardstick_device_ms",
+                          "bytes_ms", "ops_ms")}
+    print(f"phase 5b dw_chain3d_bwd per training step (B={TRAIN_BATCH}, the 21 sites): kernel "
+          f"{per_step['ms']:.3f} ms (device {per_step['device_ms']:.3f}), bound "
+          f"{max(per_step['bytes_ms'], per_step['ops_ms']):.4f} ms, plain "
+          f"{per_step['plain_ms']:.2f} ms, yardstick (the parent's path) "
+          f"{per_step['yardstick_ms']:.2f} ms (device {per_step['yardstick_device_ms']:.2f})",
+          flush=True)
+    return rows
+
+
 SMALL_IMG = (16, 32, 32)
 LOSS_RTOL = 1e-5        # loss, kernels vs plain / CUDA vs CPU, relative
 NORM_RTOL = 1e-4        # grad norm, CUDA vs CPU, relative
@@ -752,15 +854,17 @@ def phase_train_path():
                        for n, p in path.model.named_parameters()}
     peak = torch.cuda.max_memory_allocated()
     s_step = float(np.median(times[1:]))
-    bwd_device_ms = device_profile(lambda: train_path.step(path))["by_class"][
-        "deform_conv3d_bwd (hand kernel)"]
+    by_class = device_profile(lambda: train_path.step(path))["by_class"]
+    bwd_device_ms = by_class["deform_conv3d_bwd (hand kernel)"]
+    chain_bwd_device_ms = by_class["dw_chain3d_bwd (hand kernel)"]
     print(f"phase 7 training path B={TRAIN_BATCH} patch {train_path.PATCH}, remat, "
           f"deep supervision: {s_step:.4f} s/step (median of steps 2-3; steps "
           f"{', '.join(f'{t:.4f}' for t in times)} s), peak device memory "
           f"{peak / 2**30:.3f} GiB; losses {[round(l, 6) for l, _ in metrics]}, "
           f"grad norms {[round(n, 4) for _, n in metrics]}; launches per step "
-          f"{per_step}; deform_conv3d_bwd {bwd_device_ms:.3f} device-ms per step "
-          "(a fourth step under torch.profiler)", flush=True)
+          f"{per_step}; deform_conv3d_bwd {bwd_device_ms:.3f}, dw_chain3d_bwd "
+          f"{chain_bwd_device_ms:.3f} device-ms per step (a fourth step under "
+          "torch.profiler)", flush=True)
     for counts in per_step:
         if counts != train_path.LAUNCHES_PER_STEP:
             fail(f"training step launches {counts}, expected "
@@ -2732,6 +2836,9 @@ def kernel_line(rows, launches):
                               "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:240"),
                "deform_conv3d_bwd": ("deformablelka_tpu_torch/csrc/deform3d_bwd.cu",
                                      "deformablelka_tpu/ops/pallas/deform3d_bwd_kernel.py:182"),
+               "dw_chain3d_bwd": ("deformablelka_tpu_torch/csrc/dw_chain3d_bwd.cu",
+                                  "none (the JAX package differentiates the plain chain, "
+                                  "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:252)"),
                "deform_dw_conv2d": ("deformablelka_tpu_torch/csrc/deform2d_dw.cu",
                                     "deformablelka_tpu/ops/pallas/deform2d_kernel.py:182"),
                "deform_dw_conv2d_bwd": ("deformablelka_tpu_torch/csrc/deform2d_dw_bwd.cu",
@@ -2744,6 +2851,7 @@ def kernel_line(rows, launches):
     per = {"deform_conv3d": "one forward at batch 8: the 21 launches at the four stage shapes",
            "dw_chain3d": "one forward at batch 8: the 21 launches at the four stage shapes",
            "deform_conv3d_bwd": "one training step at batch 2: the 21 launches at the four stage shapes",
+           "dw_chain3d_bwd": "one training step at batch 2: the 21 launches at the four stage shapes",
            "deform_dw_conv2d": "one flagship forward at batch 24: the 12 launches at the three decoder shapes",
            "deform_dw_conv2d_bwd": "one flagship training step at batch 24: the 12 launches at the three decoder shapes",
            "dw_chain2d": "one LKA Baseline forward at batch 24: the 6 launches at the three decoder shapes",
@@ -2768,7 +2876,7 @@ def kernel_line(rows, launches):
                              ("library_device_ms", "lib_device_ms")):
             out[-1][key] = per_call(row_key) if row_key in rs[0] else None
         for key in ("small_offset_ms", "large_offset_ms", "cold_ms", "dense_conv_ms",
-                    "tc_bound_ms", "yardstick_ms"):
+                    "tc_bound_ms", "yardstick_ms", "yardstick_device_ms"):
             if key in rs[0]:
                 out[-1][key] = per_call(key)
         # sites held and timed outside the per-forward sums (DAE-LKA's chain)
@@ -2794,6 +2902,7 @@ def main() -> int:
     phase_small_reference()
     launches, wall_main, seg_main = phase_main_path()
     rows["deform_conv3d_bwd"] = phase_backward_kernel()
+    rows["dw_chain3d_bwd"] = phase_chain_backward_kernel()
     phase_small_train_step()
     per_step, _ = phase_train_path()
     train_launches = {n: sum(c[n] for c in per_step) for n in per_step[0]}

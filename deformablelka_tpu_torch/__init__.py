@@ -19,7 +19,8 @@ at first use (`ops/kernels.py`):
 
 - `ops.kernels.deform_conv3d` and `deform_conv3d_bwd`: the exact
   trilinear 3³ deformable conv and its backward;
-- `ops.kernels.dw_chain3d`: the fused dw5³ → dw7³-dil3 LKA chain;
+- `ops.kernels.dw_chain3d` and `dw_chain3d_bwd`: the fused dw5³ →
+  dw7³-dil3 LKA chain and its backward;
 - `ops.kernels.deform_dw_conv2d` and `deform_dw_conv2d_bwd`: the exact
   bilinear depthwise 2D deformable conv and its backward;
 - `ops.kernels.dw_chain2d`: the fused dw5² → dw7²-dil3 LKA chain;

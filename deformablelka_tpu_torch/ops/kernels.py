@@ -17,18 +17,18 @@ launches the kernel or raises, and never falls back. Where autograd will
 ask for a gradient (grad mode on and an input that requires one), a
 forward wrapper on a CUDA tensor is a `torch.autograd.Function`:
 `deform_conv3d`'s backward launches its backward kernel
-(`deform_conv3d_bwd`), and so does `deform_dw_conv2d`'s
-(`deform_dw_conv2d_bwd`); those of `dw_chain3d`, `dw_chain2d` and
+(`deform_conv3d_bwd`), `deform_dw_conv2d`'s (`deform_dw_conv2d_bwd`)
+and `dw_chain3d`'s (`dw_chain3d_bwd`) theirs; those of `dw_chain2d` and
 `dwconv3d` are the VJPs of their plain versions, recomputed. Otherwise
 the forward launches alone. Every launcher takes its pointers and its
 launch plan (`deform3d_plan`, `chain3d_plan`, `deform3d_bwd_plan`,
-`deform2d_dw_plan`, `deform2d_dw_bwd_plan`, `chain2d_plan`,
-`dwconv3d_plan`: pure functions of the shape, cached) as two arrays: at
-the small shapes the host's time per call sets the pace.
+`chain3d_bwd_plan`, `deform2d_dw_plan`, `deform2d_dw_bwd_plan`,
+`chain2d_plan`, `dwconv3d_plan`: pure functions of the shape, cached) as
+two arrays: at the small shapes the host's time per call sets the pace.
 `wrapper.launches` counts each kernel's calls (the deform conv's second
 pass, which adds the parts of a split K, is part of its one call, as are
-the backward's weight GEMM and its sum of parts, and the 2D backward's sum
-of dw's per-tile parts).
+the backward's weight GEMM and its sum of parts, the 2D backward's sum
+of dw's per-tile parts, and the chain backward's three passes and sum).
 """
 
 from __future__ import annotations
@@ -54,6 +54,7 @@ from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
 from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated as dwconv3d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain2d as dw_chain2d_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as dw_chain3d_plain
+from deformablelka_tpu_torch.ops.lka import dw_chain3d_backward
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -124,6 +125,7 @@ def library() -> ctypes.CDLL:
         lib.dlka_deform_dw_conv2d.restype = i32
         lib.dlka_deform_dw_conv2d_bwd.restype = i32
         lib.dlka_dw_chain3d.restype = i32
+        lib.dlka_dw_chain3d_bwd.restype = i32
         lib.dlka_dw_chain2d.restype = i32
         lib.dlka_dwconv3d.restype = i32
         lib.dlka_error_string.argtypes = [i32]
@@ -171,7 +173,7 @@ def _pointers() -> ctypes.Array:
     """This thread's array of the pointers a launcher takes."""
     buf = getattr(_launch_args, "buf", None)
     if buf is None:
-        buf = _launch_args.buf = (ctypes.c_uint64 * 10)()  # the most any launcher takes
+        buf = _launch_args.buf = (ctypes.c_uint64 * 15)()  # the most any launcher takes
     return buf
 
 
@@ -302,7 +304,7 @@ def deform_conv3d_bwd(x, offset, w, g):
 
 deform_conv3d_bwd.launches = 0
 
-def _chain_forward(x, w_dw, b_dw, w_dil, b_dil):
+def _check_chain(x, w_dw, b_dw, w_dil, b_dil):
     B, D, H, W, C = x.shape
     dev = x.device
     if not (x.dtype is torch.float32 and x.is_contiguous()
@@ -314,6 +316,12 @@ def _chain_forward(x, w_dw, b_dw, w_dil, b_dil):
                                (b_dil, "b_dil", (C,))):
             _require(t, name, shape, dev)
         raise ValueError("dw_chain3d kernel: too many elements for int32 indices")
+
+
+def _chain_forward(x, w_dw, b_dw, w_dil, b_dil):
+    _check_chain(x, w_dw, b_dw, w_dil, b_dil)
+    B, D, H, W, C = x.shape
+    dev = x.device
     plan = chain3d_plan(B, D, H, W, C)
     y = torch.empty_like(x)
     a = _pointers()
@@ -333,8 +341,8 @@ class _PlainVjp(torch.autograd.Function):
     recomputed (cuDNN or PyTorch's own kernels on the card), as the JAX
     package differentiates a plain form of its fused chains
     (`lka_fused_kernel.py` `_c3_bwd`/`_c2_bwd`): it has no backward kernel
-    for them, and the port's are later work (ROADMAP). The chains and the
-    dilated depthwise conv take it; the deform convs have backward kernels."""
+    for them. The 2D chain and the dilated depthwise conv take it; the
+    deform convs and the 3D chain have backward kernels."""
 
     @staticmethod
     def forward(ctx, kernel, plain, *inputs):
@@ -354,18 +362,71 @@ class _PlainVjp(torch.autograd.Function):
                               for t in inputs))
 
 
+class _Chain3d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_dw, b_dw, w_dil, b_dil):
+        ctx.save_for_backward(x, w_dw, b_dw, w_dil, b_dil)
+        return _chain_forward(x, w_dw, b_dw, w_dil, b_dil)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = dw_chain3d_bwd(*ctx.saved_tensors, g.contiguous())
+        return tuple(d if need else None for d, need in zip(grads, ctx.needs_input_grad))
+
+
 def dw_chain3d(x, w_dw, b_dw, w_dil, b_dil):
     """dw5³ (pad 2) + bias → dw7³ dilation 3 (pad 9) + bias, fused.
 
     x (B, D, H, W, C), w_dw (5, 5, 5, 1, C), b_dw (C,), w_dil (7, 7, 7, 1,
-    C), b_dil (C,) → (B, D, H, W, C). Kernel: csrc/dw_chain3d.cu.
+    C), b_dil (C,) → (B, D, H, W, C). Kernel: csrc/dw_chain3d.cu; its
+    gradient: `dw_chain3d_bwd`.
     """
     if not x.is_cuda:
         return dw_chain3d_plain(x, w_dw, b_dw, w_dil, b_dil)
-    return _dispatch(_chain_forward, dw_chain3d_plain, x, w_dw, b_dw, w_dil, b_dil)
+    if not _grad_needed(x, w_dw, b_dw, w_dil, b_dil):
+        return _chain_forward(x, w_dw, b_dw, w_dil, b_dil)
+    return _Chain3d.apply(x, w_dw, b_dw, w_dil, b_dil)
 
 
 dw_chain3d.launches = 0
+
+
+def dw_chain3d_bwd(x, w_dw, b_dw, w_dil, b_dil, g):
+    """(dx, dw_dw, db_dw, dw_dil, db_dil) of `dw_chain3d(x, w_dw, b_dw,
+    w_dil, b_dil)` at the cotangent g (B, D, H, W, C). Kernel:
+    csrc/dw_chain3d_bwd.cu (three passes, a = dw5(x) + b_dw recomputed, da
+    and dw_dil's per-block sums, dx and dw_dw's, then a fixed-order sum of
+    the blocks' parts: one call). Its scratch: a and da, B·D·H·W·C floats
+    each, and the parts, blocks × (k³ + 1) × C floats a pass."""
+    if not x.is_cuda:
+        return dw_chain3d_backward(x, w_dw, b_dw, w_dil, b_dil, g)
+    _check_chain(x, w_dw, b_dw, w_dil, b_dil)
+    B, D, H, W, C = x.shape
+    _require(g, "g", (B, D, H, W, C), x.device)
+    plan = chain3d_bwd_plan(B, D, H, W, C)
+    a, da, dx = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    part5 = torch.empty(plan.dw5.parts * 126 * C, device=x.device, dtype=torch.float32)
+    part7 = torch.empty(plan.dil7.parts * 344 * C, device=x.device, dtype=torch.float32)
+    dw_dw, db_dw = torch.empty_like(w_dw), torch.empty_like(b_dw)
+    dw_dil, db_dil = torch.empty_like(w_dil), torch.empty_like(b_dil)
+    p = _pointers()
+    p[0] = xp = x.data_ptr()
+    p[1], p[2], p[3] = w_dw.data_ptr(), b_dw.data_ptr(), w_dil.data_ptr()
+    p[4] = gp = g.data_ptr()
+    p[5], p[6], p[7] = a.data_ptr(), da.data_ptr(), dx.data_ptr()
+    p[8], p[9] = part5.data_ptr(), part7.data_ptr()
+    p[10], p[11] = dw_dw.data_ptr(), db_dw.data_ptr()
+    p[12], p[13] = dw_dil.data_ptr(), db_dil.data_ptr()
+    p[14] = _stream(x.device)
+    vec = plan.dw5.vec if xp % 16 == 0 and gp % 16 == 0 else 1
+    err = (_lib or library()).dlka_dw_chain3d_bwd(p, plan.params, vec)
+    if err:
+        _check(err, "dw_chain3d_bwd")
+    dw_chain3d_bwd.launches += 1
+    return dx, dw_dw, db_dw, dw_dil, db_dil
+
+
+dw_chain3d_bwd.launches = 0
 
 
 def _check_deform_dw(x, offset, w, dil):
@@ -488,7 +549,7 @@ class LaunchPlan:
     threads: int
     params: ctypes.Array = field(compare=False, repr=False)
     parts: int = 1   # deform3d: the K split over taps; chain3d: the runs of a z phase;
-                     # deform2d_dw_bwd: its channel chunks
+                     # deform2d_dw_bwd: its channel chunks; chain3d_bwd: a pass's blocks
 
 
 _SMS = 132                   # H100 SXM streaming multiprocessors
@@ -781,6 +842,81 @@ def chain3d_plan(B: int, D: int, H: int, W: int, C: int) -> LaunchPlan:
                       parts=runs)
 
 
+_CHAIN_BWD_STRIP, _CHAIN_BWD_THREADS = 4, 256   # csrc/dw_chain3d_bwd.cu kStrip, kThreads
+
+
+def chain3d_bwd_smem_bytes(k: int, ct: int, brick: tuple, splits: int) -> int:
+    """csrc/dw_chain3d_bwd.cu's shared memory for a tap-sum pass of a k³
+    kernel over a brick (z, y, x) of `ct` channels: h with a halo of k // 2
+    (its rows rounded up to the 4-row strip), p over the brick (the same
+    rows), and the `splits` partial sums of each tap."""
+    tz, ty, tx = brick
+    typ = -(-ty // _CHAIN_BWD_STRIP) * _CHAIN_BWD_STRIP
+    h = (tz + k - 1) * (typ + k - 1) * (tx + k - 1)
+    return 4 * ct * (h + tz * typ * tx + splits * k ** 3)
+
+
+@dataclass(frozen=True)
+class Chain3dBwdPlan:
+    """dw_chain3d_bwd's two kinds of pass, each a `LaunchPlan`: `dw5`, the
+    dw5 passes on the volume (a, then dx with dw_dw's sums), and `dil7`,
+    the dilated pass on each of the 27 phase sub-grids (da with dw_dil's
+    sums). A pass's `params` are its brick, its `splits` and its shared
+    memory; its `parts`, the blocks whose partial sums `dw_chain3d_bwd_sum`
+    adds per channel tile. `params`: the shape, the channel tile and both
+    passes, as the launcher reads them."""
+    dw5: LaunchPlan
+    dil7: LaunchPlan
+    params: ctypes.Array = field(compare=False, repr=False)
+
+
+@functools.lru_cache(maxsize=None)
+def chain3d_bwd_plan(B: int, D: int, H: int, W: int, C: int) -> Chain3dBwdPlan:
+    """dw_chain3d_bwd's blocks: a brick of one volume's voxels × `ct`
+    channels (4, or C rounded up to a power of two below 4), for the dw5
+    passes on the volume and for the dilated pass on each of its 27 phase
+    sub-grids (every third voxel along each axis: a dense 7³ kernel
+    there). For each pass, from the whole (sub-)grid a brick side is halved
+    (the halving that leaves the least shared memory) until two blocks fit
+    an SM, then on while the grid holds fewer than two blocks an SM and h's
+    halo stays under 8× the brick. A tap-sum task is a tap row and a
+    channel, the brick's columns cut into the `splits` that fill 256
+    threads. Raises where one voxel does not fit."""
+    ct = min(4, _pow2_at_least(C))
+    tiles = -(-C // ct)
+
+    def one_pass(k, dil):
+        splits = max(1, _CHAIN_BWD_THREADS // (k * k * ct))
+        sub = tuple(-(-n // dil) for n in (D, H, W))
+        smem = lambda t: chain3d_bwd_smem_bytes(k, ct, t, splits)
+
+        def halved(t):
+            cands = [t[:i] + (-(-t[i] // 2),) + t[i + 1:] for i in range(3) if t[i] > 1]
+            return min(cands, key=smem)
+
+        bricks = lambda t: math.prod(-(-n // s) for n, s in zip(sub, t))
+        staged = lambda t: math.prod(s + k - 1 for s in t)
+        tile = sub
+        while smem(tile) > _SMEM_TWO_BLOCKS and tile != (1, 1, 1):
+            tile = halved(tile)
+        if smem(tile) > _SMEM_TWO_BLOCKS:
+            raise ValueError(f"dw_chain3d_bwd kernel: a voxel of {ct} channels does not "
+                             "fit shared memory")
+        while B * dil ** 3 * bricks(tile) * tiles < 2 * _SMS and tile != (1, 1, 1):
+            half = halved(tile)
+            if staged(half) > 8 * math.prod(half):
+                break
+            tile = half
+        blocks = dil ** 3 * bricks(tile)
+        return LaunchPlan(ct, tile, _vec(ct, C), smem(tile), (blocks, tiles, B),
+                          _CHAIN_BWD_THREADS, _c_ints(*tile, splits, smem(tile)),
+                          parts=B * blocks)
+
+    dw5, dil7 = one_pass(5, 1), one_pass(7, 3)
+    return Chain3dBwdPlan(dw5, dil7, _c_ints(B, D, H, W, C, dw5.channel_tile,
+                                             *dw5.params, *dil7.params))
+
+
 def chain2d_smem_bytes(W: int, rows: int, ct: int) -> int:
     """csrc/dw_chain2d.cu's shared memory for a band of `rows` output rows
     of `ct` channels: the haloed input rows (channel pitch padded to 4 mod
@@ -964,7 +1100,7 @@ def dwconv3d(x, w, bias, dil: int):
 dwconv3d.launches = 0
 
 WRAPPERS = (deform_conv3d, dw_chain3d, deform_conv3d_bwd, deform_dw_conv2d,
-            deform_dw_conv2d_bwd, dw_chain2d, dwconv3d)
+            deform_dw_conv2d_bwd, dw_chain2d, dwconv3d, dw_chain3d_bwd)
 
 
 def reset_launches() -> None:

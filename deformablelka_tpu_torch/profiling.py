@@ -129,6 +129,8 @@ def kernel_class(name: str) -> str:
         return "deform_conv3d (hand kernel)"
     if "dw_chain3d_kernel" in name:
         return "dw_chain3d (hand kernel)"
+    if "dw_chain3d_bwd" in name:
+        return "dw_chain3d_bwd (hand kernel)"
     if "deform_dw_conv2d_kernel" in name:
         return "deform_dw_conv2d (hand kernel)"
     if "dw_chain2d_kernel" in name:

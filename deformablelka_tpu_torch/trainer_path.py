@@ -71,9 +71,10 @@ PANCREAS_LABELED = 1
 
 
 def _launches(deform, chain, bwd) -> dict:
+    """The published block's launches: `bwd` of each backward kernel."""
     return {"deform_conv3d": deform, "dw_chain3d": chain, "deform_conv3d_bwd": bwd,
             "deform_dw_conv2d": 0, "deform_dw_conv2d_bwd": 0, "dw_chain2d": 0,
-            "dwconv3d": 0}
+            "dwconv3d": 0, "dw_chain3d_bwd": bwd}
 
 
 # kernel launches of the published block's paths: a Synapse step with remat

@@ -16,7 +16,7 @@ print-out, its CUDA-event latency harness and its unused profiler):
   CPU tensor takes it) is taken out again, so that a D-LKA model is
   counted the same on the card and on the CPU. The backward of a kernel is
   counted where its wrapper runs (`deform_conv3d_bwd`,
-  `deform_dw_conv2d_bwd` on the card); on the CPU autograd differentiates
+  `deform_dw_conv2d_bwd`, `dw_chain3d_bwd` on the card); on the CPU autograd differentiates
   the plain version, and torch's counter counts what it sees of that.
   torch has no counterpart of XLA's "bytes accessed" (the bytes of every
   operation's operands): in its place the report gives `gbytes_floor`, the
@@ -68,6 +68,8 @@ def kernel_ops(name: str, args) -> int:
         return B * D * H * W * 27 * (4 * Ci * Co + 48 * Ci + 48)
     if name == "dw_chain3d":          # dw5³ and dw7³, a multiply-add per tap
         return x.numel() * 2 * (125 + 343)
+    if name == "dw_chain3d_bwd":      # the data and the weight gradients, a forward each
+        return x.numel() * 4 * (125 + 343)
     if name == "dw_chain2d":
         return x.numel() * 2 * (25 + 49)
     if name == "deform_dw_conv2d":    # per tap: the 4-corner blend (7) and the weight (2)

@@ -5,8 +5,8 @@ test, so every worker collects the same tests). On the card:
 `python -m pytest tests/test_torch_kernels.py -m cuda --noconftest`
 (`tests/conftest.py` imports JAX). TF32 is off on
 both sides. Tolerance: max|kernel − plain| ≤ 1e-4 · max(1, max|plain|),
-f32 sums in another order (and, in the backward kernel, atomics in an
-order that changes from run to run).
+f32 sums in another order (and, in the deform backward kernel, atomics
+in an order that changes from run to run).
 """
 
 from unittest import mock
@@ -14,7 +14,7 @@ from unittest import mock
 import pytest
 import torch
 
-from deformablelka_tpu_torch import main_path, main_path2d
+from deformablelka_tpu_torch import main_path, main_path2d, train_path
 from deformablelka_tpu_torch.models.dlka_former import dlka_former_synapse
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d, LKA3dDeform
 from deformablelka_tpu_torch.nn.layers import init_parameters
@@ -28,6 +28,7 @@ from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
 from deformablelka_tpu_torch.ops.lka import dw_chain2d as chain2d_plain
 from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated as dw_plain
 from deformablelka_tpu_torch.ops.lka import dw_chain3d as chain_plain
+from deformablelka_tpu_torch.ops.lka import dw_chain3d_backward
 
 pytestmark = pytest.mark.cuda
 
@@ -217,6 +218,111 @@ def test_deform_backward_kernel_weight_gradient_is_deterministic(cuda, B, S, C):
     x, off, w, g = _backward_inputs(cuda, B, S, C, C)
     assert torch.equal(kernels.deform_conv3d_bwd(x, off, w, g)[2],
                        kernels.deform_conv3d_bwd(x, off, w, g)[2])
+
+
+def _chain_inputs(gen, B, S, C):
+    D, H, W = S if isinstance(S, tuple) else (S,) * 3
+    x = torch.randn(B, D, H, W, C, device="cuda", generator=gen)
+    w5 = torch.randn(5, 5, 5, 1, C, device="cuda", generator=gen) / 125 ** 0.5
+    b5 = torch.randn(C, device="cuda", generator=gen)
+    w7 = torch.randn(7, 7, 7, 1, C, device="cuda", generator=gen) / 343 ** 0.5
+    b7 = torch.randn(C, device="cuda", generator=gen)
+    g = torch.randn(B, D, H, W, C, device="cuda", generator=gen)
+    return (x, w5, b5, w7, b7), g
+
+
+def _chain_autograd(args, g):
+    """(dx, dw5, db5, dw7, db7): autograd of the plain chain (cuDNN)."""
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    return torch.autograd.grad(chain_plain(*leaves), leaves, g)
+
+
+@pytest.mark.parametrize("B,S,C", [(2, 32, 32), (2, 16, 64), (2, 8, 128), (2, 4, 256),
+                                   (2, 48, 32), (2, 24, 64),
+                                   (1, (5, 13, 7), 3), (2, (9, 14, 10), 12),
+                                   (1, (20, 7, 9), 6), (1, (4, 30, 5), 5)])
+def test_chain_backward_kernel_matches_plain(cuda, B, S, C):
+    """Each of the five gradients against autograd of the plain chain: the
+    four Synapse stages at batch 2 (the dilated pass on whole phase
+    sub-grids), two Pancreas stages (48³: its sub-grids cut into bricks);
+    sides the bricks do not divide and borders thinner than the dilated
+    reach; C % 4 ≠ 0 (scalar accesses) and C below one channel tile. And
+    against `dw_chain3d_backward`, the same gradient written out in the
+    form the kernel computes (the CPU path, held against JAX there)."""
+    args, g = _chain_inputs(cuda, B, S, C)
+    before = kernels.dw_chain3d_bwd.launches
+    got = kernels.dw_chain3d_bwd(*args, g)
+    assert kernels.dw_chain3d_bwd.launches == before + 1
+    for a, r, e in zip(got, _chain_autograd(args, g), dw_chain3d_backward(*args, g)):
+        assert a.shape == r.shape == e.shape
+        _close(a, r)
+        _close(a, e)
+
+
+@pytest.mark.parametrize("B,S,C", [(2, 32, 32), (2, 4, 256), (2, (9, 14, 10), 12)])
+def test_chain_backward_kernel_is_deterministic(cuda, B, S, C):
+    """No atomics: the weight gradients' per-block sums are added in a fixed
+    order, so two calls give the same bits, every output."""
+    args, g = _chain_inputs(cuda, B, S, C)
+    for a, b in zip(kernels.dw_chain3d_bwd(*args, g), kernels.dw_chain3d_bwd(*args, g)):
+        assert torch.equal(a, b)
+
+
+def test_chain_backward_kernel_on_unaligned_inputs_takes_scalar_accesses(cuda):
+    C = 8
+    args, _ = _chain_inputs(cuda, 2, (4, 5, 6), C)
+    n = 2 * 4 * 5 * 6 * C
+    buf = torch.randn(2 * n + 2, device="cuda", generator=cuda)
+    x, g = buf[1:n + 1].view(2, 4, 5, 6, C), buf[n + 2:].view(2, 4, 5, 6, C)
+    assert x.data_ptr() % 16 != 0 and g.data_ptr() % 16 != 0
+    args = (x, *args[1:])
+    for a, r in zip(kernels.dw_chain3d_bwd(*args, g), _chain_autograd(args, g)):
+        _close(a, r)
+
+
+def test_chain_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    (x, w5, b5, w7, b7), g = _chain_inputs(cuda, 1, 4, 8)
+    with pytest.raises(TypeError):
+        kernels.dw_chain3d_bwd(x, w5, b5, w7, b7, g.double())
+    with pytest.raises(ValueError):
+        kernels.dw_chain3d_bwd(x, w5, b5, w7, b7, g[..., :4])
+    with pytest.raises(ValueError):
+        kernels.dw_chain3d_bwd(x, w5, b5, w7, b7, g.transpose(1, 2))
+    with pytest.raises(ValueError):
+        kernels.dw_chain3d_bwd(x.transpose(1, 2), w5, b5, w7, b7, g)
+    with pytest.raises(ValueError):
+        kernels.dw_chain3d_bwd(x, w5.cpu(), b5, w7, b7, g)
+    with pytest.raises(ValueError):
+        kernels.dw_chain3d_bwd(x, w7, b5, w5, b7, g)
+
+
+def test_chain_function_launches_the_backward_kernel(cuda):
+    """Autograd through `dw_chain3d` on the card: one forward and one
+    backward launch, the plain chain's gradients, and none for an input
+    that asks for none."""
+    args, g = _chain_inputs(cuda, 2, (6, 9, 7), 8)
+    need = (True, True, False, True, True)
+    leaves = [a.clone().requires_grad_(n) for a, n in zip(args, need)]
+    before = (kernels.dw_chain3d.launches, kernels.dw_chain3d_bwd.launches)
+    kernels.dw_chain3d(*leaves).backward(g)
+    assert (kernels.dw_chain3d.launches, kernels.dw_chain3d_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert leaves[2].grad is None
+    for leaf, r in zip(leaves, _chain_autograd(args, g)):
+        if leaf.requires_grad:
+            _close(leaf.grad, r)
+
+
+def test_training_step_launches_match_the_table(cuda):
+    """A training step of the published model (remat, deep supervision) at
+    16×32×32 launches each kernel as `train_path.LAUNCHES_PER_STEP` says:
+    the chain's backward once a block."""
+    path = train_path.build(seed=0, img_size=(16, 32, 32))
+    kernels.reset_launches()
+    train_path.step(path)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == train_path.LAUNCHES_PER_STEP
+    assert train_path.LAUNCHES_PER_STEP["dw_chain3d_bwd"] == main_path.BLOCKS
 
 
 def test_kernel_outputs_carry_a_grad_fn(cuda):

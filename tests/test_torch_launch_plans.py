@@ -12,7 +12,8 @@ tables of `main_path2d` and `trainer2d_path`; the deform conv's backward at the 
 2; the Pancreas model's four stage shapes at batch 2, as its trainer runs
 them, for both deform kernels and the chain; the three 2D decoder shapes
 at batch 24, the 2D deform conv and its backward at k5 and k7 dil 3 on
-each, the backward also at batch 16, the skin trainer's; 8³×128 K5 d3 and
+each, the backward also at batch 16, the skin trainer's; the 3D chain's
+backward at the Synapse and Pancreas stages, batch 2; 8³×128 K5 d3 and
 4³×256 K3 d2 at batch 8) and at every shape of the `cuda` tests in
 `tests/test_torch_kernels.py`. The dispatch runs with the plain version
 standing in for the kernel, as on the card: exact equality (atol 0), since
@@ -305,6 +306,46 @@ def test_chain3d_plan(shape):
         assert math.prod(plan.grid) >= SMS
         assert plan.vec == 4
         assert rows >= H  # whole planes: no dw5 halo rows recomputed
+
+
+# the chain's backward: training at batch 2, the Synapse and Pancreas stages
+CHAIN3D_BWD_SITES = [(2, S, S, S, C) for S, C in STAGES_3D + PANCREAS_STAGES]
+CHAIN3D_BWD_TESTS = [(1, 5, 13, 7, 3), (2, 9, 14, 10, 12), (1, 20, 7, 9, 6),
+                     (1, 4, 30, 5, 5), (2, 4, 5, 6, 8), (2, 6, 9, 7, 8), (2, 4, 4, 4, 8)]
+SMEM_TWO_BLOCKS = 115712   # per block, for two blocks an SM
+
+
+@pytest.mark.parametrize("shape", CHAIN3D_BWD_SITES + CHAIN3D_BWD_TESTS,
+                         ids=_ids(CHAIN3D_BWD_SITES + CHAIN3D_BWD_TESTS))
+def test_chain3d_bwd_plan(shape):
+    """Both passes' bricks lie in their (sub-)grid, two blocks fit an SM,
+    the tap-sum tasks fit the 256 threads, and the grid and the partial
+    sums' blocks follow from the brick; at the training sites the dilated
+    pass fills the card twice over and the dw5 passes once, or their brick
+    is the whole volume."""
+    B, D, H, W, C = shape
+    plan = kernels.chain3d_bwd_plan(*shape)
+    ct = plan.dw5.channel_tile
+    assert ct in (1, 2, 4) and (ct == 4 or ct >= C)
+    p = list(plan.params)
+    assert p[:6] == [B, D, H, W, C, ct]
+    for i, (k, dil, one) in enumerate(((5, 1, plan.dw5), (7, 3, plan.dil7))):
+        assert one.channel_tile == ct
+        assert one.vec == (4 if C % 4 == 0 and ct == 4 else 1)
+        assert one.threads == 256
+        tile, smem, grid, parts = one.tile, one.smem_bytes, one.grid, one.parts
+        splits = list(one.params)[3]
+        assert list(one.params) == [*tile, splits, smem] == p[6 + 5 * i:11 + 5 * i]
+        assert smem == kernels.chain3d_bwd_smem_bytes(k, ct, tile, splits) <= SMEM_TWO_BLOCKS
+        assert splits >= 1 and k * k * ct * splits <= one.threads
+        sub = [-(-n // dil) for n in (D, H, W)]
+        assert all(1 <= t <= n for t, n in zip(tile, sub))
+        bricks = math.prod(-(-n // t) for n, t in zip(sub, tile))
+        assert grid == (dil ** 3 * bricks, -(-C // ct), B)
+        assert parts == B * dil ** 3 * bricks
+        if shape in CHAIN3D_BWD_SITES:
+            assert one.vec == 4
+            assert math.prod(grid) >= (2 * SMS if dil == 3 else SMS) or list(tile) == sub
 
 
 @pytest.mark.parametrize("shape", CHAIN_SITES + CHAIN_TESTS,
