@@ -6,8 +6,9 @@ its Synapse, ACDC and Pancreas configurations, 3D case inference through
 the `predict_simple` and `test_pancreas` CLIs, 3D training through
 `run_training` and `train_pancreas`, and the 2D MaxViT D-LKA Net (slice
 inference, and training through `train_synapse2d` and `train_skin`),
-the 2D ablation zoo, the Pancreas baselines and GenericUNet, and
-`parallel` (meshes of ranks over `torch.distributed`: tile-sharded
+the 2D ablation zoo, the Pancreas baselines and GenericUNet, Swin
+UNETR's BTCV configuration (`models.swin_unetr`, a model of the port's
+own, trained through `training.train_step`), and `parallel` (meshes of ranks over `torch.distributed`: tile-sharded
 sliding windows, data-parallel and halo-exchange training steps).
 Tensors are channels-last ((B, D, H, W, C) or (B, H, W, C)) at every
 public function, as in the JAX package, and module attributes keep the

@@ -54,7 +54,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deformablelka_tpu_torch.models.dat_lka import _trunc_normal_
-from deformablelka_tpu_torch.nn.dynunet import UnetOutBlock, UnetResBlock
+from deformablelka_tpu_torch.nn.dynunet import (
+    UnetOutBlock, UnetrBasicBlock, UnetrUpBlock)
 from deformablelka_tpu_torch.nn.layers import (
     Conv3d, ConvTranspose, Linear, PromotingConv3d, PromotingStrideConvTranspose)
 from deformablelka_tpu_torch.nn.norms import (
@@ -380,17 +381,6 @@ class ViT(nn.Module):
         return self.norm(t), hidden_states
 
 
-class UnetrBasicBlock(nn.Module):
-    """UnetrBasicBlock, res_block=True: an UnetResBlock as `layer`."""
-
-    def __init__(self, in_channels, out_channels, norm_name):
-        super().__init__()
-        self.layer = UnetResBlock(in_channels, out_channels, 3, 1, norm_name)
-
-    def forward(self, x):
-        return self.layer(x)
-
-
 class UnetrPrUpBlock(nn.Module):
     """UnetrPrUpBlock, conv_block=False (upstream's default): deconv
     (in → out, k2 s2), then num_layer × deconv (out → out, k2 s2)."""
@@ -410,21 +400,6 @@ class UnetrPrUpBlock(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         return x
-
-
-class UnetrUpBlock(nn.Module):
-    """UnetrUpBlock, res_block=True: deconv (in → out, k2 s2), concat the
-    skip, UnetResBlock(2·out → out, 3³)."""
-
-    def __init__(self, in_channels: int, out_channels: int, norm_name: str):
-        super().__init__()
-        self.transp_conv = _wrapped(
-            ConvTranspose(in_channels, out_channels, 2, 2, bias=False))
-        self.conv_block = UnetResBlock(2 * out_channels, out_channels, 3, 1,
-                                       norm_name)
-
-    def forward(self, x, skip):
-        return self.conv_block(torch.cat([self.transp_conv(x), skip], dim=-1))
 
 
 class UNETR(nn.Module):

@@ -5,7 +5,10 @@ norm → leaky ReLU (0.01) twice, with a 1³ projected residual when the
 channels or the stride change; `UnetBasicBlock`, the same without the
 residual; `UnetUpBlock`, a transposed conv (kernel = stride, no bias),
 the skip concatenated after it, then an `UnetBasicBlock`; `UnetOutBlock`
-(3D), a 1³ conv with bias. `UnetBasicBlock` and `UnetUpBlock` take
+(3D), a 1³ conv with bias; and UNETR's blocks with `res_block=True`
+(UNETR, Swin UNETR): `UnetrBasicBlock`, an `UnetResBlock` as `layer`,
+and `UnetrUpBlock`, a 2³ stride-2 transposed conv, the skip concatenated,
+an `UnetResBlock`. `UnetBasicBlock` and `UnetUpBlock` take
 `spatial_dims` 2 or 3. Each conv sits in a `Sequential` child named
 `conv`, as MONAI's `Convolution` does, so the state_dict keys are
 upstream's (`conv1.conv.weight`, `transp_conv.conv.weight`,
@@ -119,3 +122,28 @@ class UnetOutBlock(nn.Module):
 
     def forward(self, x):
         return self.conv(x)
+
+
+class UnetrBasicBlock(nn.Module):
+    """UnetrBasicBlock, res_block=True: an UnetResBlock (3³) as `layer`."""
+
+    def __init__(self, in_channels: int, out_channels: int, norm_name: str = "instance"):
+        super().__init__()
+        self.layer = UnetResBlock(in_channels, out_channels, 3, 1, norm_name)
+
+    def forward(self, x):
+        return self.layer(x)
+
+
+class UnetrUpBlock(nn.Module):
+    """UnetrUpBlock, res_block=True: deconv (in → out, k2 s2, no bias),
+    concat the skip, UnetResBlock(2·out → out, 3³)."""
+
+    def __init__(self, in_channels: int, out_channels: int, norm_name: str = "instance"):
+        super().__init__()
+        self.transp_conv = nn.Sequential(OrderedDict(conv=ConvTranspose(
+            in_channels, out_channels, 2, stride=2, bias=False)))
+        self.conv_block = UnetResBlock(2 * out_channels, out_channels, 3, 1, norm_name)
+
+    def forward(self, x, skip):
+        return self.conv_block(torch.cat([self.transp_conv(x), skip], dim=-1))

@@ -17,12 +17,17 @@ current stream. A span never synchronises: read the events
 (`elapsed_time`) after the profiled stretch has ended. A unit span
 (`unit=True`: a training step, a volume through the sliding window)
 stores at exit what every hand kernel's `.launches` added while it was
-open.
+open, and what the program's counters (`count`) gained.
 
 | span | opened by |
 |---|---|
 | `dlka.step` (unit) > `.forward`, `.loss`, `.backward`, `.clip`, `.update` | `training/train_step.make_train_step`'s step |
 | `dlka.window` (unit) > `.upload`, `.tile` (> `.flip`, `.forward`, `.tta`, `.blend`), `.normalize`, `.argmax`, `.fetch` | `inference/sliding_window.SlidingWindowInference` |
+| `dlka.swin.stage` > `dlka.swin.attention` (the latter also under a block's recompute) | `nn/swin3d.py` |
+
+| counter | counted by |
+|---|---|
+| `dlka.swin.windows`: windows attended | `nn/swin3d.SwinBlock3D` |
 """
 
 from __future__ import annotations
@@ -40,20 +45,22 @@ _OFF = contextlib.nullcontext()
 _records: deque = deque(maxlen=SPAN_LIMIT)
 _open: list = []              # the recording spans open now, innermost last
 _units = 0                    # unit spans opened since `reset_spans`
+_counts: defaultdict = defaultdict(int)   # the program's counters (`count`)
 
 
 class SpanRecord:
     """One recorded span, and the context that records it. `unit_span`
     marks a unit span and `unit` is the index of the unit it lies in;
     `start` and `end` are CUDA timing events (None off CUDA); `launches`
-    is set on a unit span at exit: {hand kernel wrapper: launches}."""
+    is set on a unit span at exit: {hand kernel wrapper: launches}, and
+    `counts`: {counter: what it gained}."""
 
     __slots__ = ("name", "args", "unit_span", "parent", "unit", "start", "end",
-                 "launches", "_range", "_before")
+                 "launches", "counts", "_range", "_before", "_counted")
 
     def __init__(self, name: str, unit_span: bool, args: dict):
         self.name, self.unit_span, self.args = name, unit_span, args
-        self.parent = self.unit = self.start = self.end = self.launches = None
+        self.parent = self.unit = self.start = self.end = self.launches = self.counts = None
 
     def __enter__(self):
         global _units
@@ -63,6 +70,7 @@ class SpanRecord:
 
             self.unit, _units = _units, _units + 1
             self._before = kernels.launch_counts()
+            self._counted = dict(_counts)
         elif self.parent is not None:
             self.unit = self.parent.unit
         self._range = torch.profiler.record_function(
@@ -84,6 +92,8 @@ class SpanRecord:
 
             self.launches = {k: v - self._before[k] for k, v in kernels.launch_counts().items()
                              if v != self._before[k]}
+            self.counts = {k: v - self._counted.get(k, 0) for k, v in _counts.items()
+                           if v != self._counted.get(k, 0)}
         _open.pop()
         self._range.__exit__(*exc)
         return False
@@ -96,6 +106,16 @@ def span(name: str, unit: bool = False, **args):
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return SpanRecord(name, unit, args)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds `n` to the program's counter `name`, traced or not."""
+    _counts[name] += n
+
+
+def counts() -> dict:
+    """{counter: its count since the process started}."""
+    return dict(_counts)
 
 
 def spans() -> list:

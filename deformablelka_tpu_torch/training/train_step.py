@@ -1,5 +1,6 @@
 """The training step: SGD with Nesterov momentum, weight decay, a global-norm
-clip, and the deep-supervision loss.
+clip, and the Dice + CE loss, deep-supervised where the model returns a
+list of scales.
 
 Port of `make_sgd` and `make_train_step` in
 `deformablelka_tpu/training/train_step.py`. The step reproduces
@@ -53,8 +54,8 @@ import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
 
 from deformablelka_tpu_torch.profiling import span
-from deformablelka_tpu_torch.training.losses import (deep_supervision_loss, one_hot,
-                                                     softmax_helper)
+from deformablelka_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
+                                                     one_hot, softmax_helper)
 
 CLIP_NORM = 12.0
 
@@ -83,14 +84,23 @@ def clip_grad_norm(params) -> torch.Tensor:
     return norm
 
 
+def model_loss(out, label, loss_fn=dc_and_ce_loss):
+    """The loss of a model's output: one tensor of logits is one scale
+    (`loss_fn` alone), a list of them the deep-supervision sum."""
+    if torch.is_tensor(out):
+        return loss_fn(out, label)
+    return deep_supervision_loss(out, label, loss_fn)
+
+
 def loss_of(model: torch.nn.Module, image, label):
-    """The deep-supervision Dice + CE loss on one batch: image (B, *S, Cin),
-    label (B, *S) int; the model's forward and the loss in the spans
-    `dlka.step.forward` and `dlka.step.loss`."""
+    """The Dice + CE loss on one batch (`model_loss`: deep-supervised where
+    the model returns a list): image (B, *S, Cin), label (B, *S) int; the
+    model's forward and the loss in the spans `dlka.step.forward` and
+    `dlka.step.loss`."""
     with span("dlka.step.forward"):
         out = model(image)
     with span("dlka.step.loss"):
-        return deep_supervision_loss(out, label)
+        return model_loss(out, label)
 
 
 def global_dc_and_ce_loss(logits, labels, group=None):
@@ -153,7 +163,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.SGD, mesh=Non
                 with span("dlka.step.forward"):
                     out = model(image)
                 with span("dlka.step.loss"):
-                    share = deep_supervision_loss(out, label, loss_fn)
+                    share = model_loss(out, label, loss_fn)
                     loss = share.detach().clone()
                     dist.all_reduce(loss, group=group)
             with span("dlka.step.backward"):
