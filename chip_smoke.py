@@ -278,9 +278,19 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    with the float32 input and beside phase 11, 12 launches, logits
    float32 and the labels ≥ 0.999 equal to the plain versions'). Phase
    17's `-val` runs in bfloat16 too (`cli/run_training.py`), its plain
-   run as well.
+   run as well;
+26. kernel 7 (`conv3d_wgrad`, the weight gradient of the dense stride-1
+   1³ and 3³ convs) at every such shape of the benchmark's
+   `synapse3d.train` and `swin_unetr.train` (B=2, x and g N(0, 1)):
+   ‖Δ‖ / ‖·‖ against the plain version in float64, beside cuDNN's own,
+   within 1e-5; two calls bitwise equal; the kernel's time (CUDA events,
+   in turns with the yardstick, and device time), its bound, the plain
+   version's time and the yardstick, cuDNN's f32 `conv3d_weight` on the
+   same channels-last views (the port's path where the kernel is not
+   engaged); then per step of each cell, all shapes and those
+   `convs.hand_wgrad_shape` engages. This table sets that rule.
 
-Phase 19 runs right after phase 8, the others in order. Then one JSON
+Phase 19 runs right after phase 8, phase 26 after phase 5b, the others in order. Then one JSON
 line of the kernels' numbers and, last, the contract line {"ok": true,
 "device": {...}}. Any failure exits nonzero before it.
 """
@@ -329,7 +339,8 @@ from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d
 from deformablelka_tpu_torch.nn.layers import init_parameters
 from deformablelka_tpu_torch.nn.lka2d import DeformConv
 from deformablelka_tpu_torch.ops import kernels
-from deformablelka_tpu_torch.ops.convs import to_nchw, to_ncdhw
+from deformablelka_tpu_torch.models.swin_unetr import swin_unetr_btcv
+from deformablelka_tpu_torch.ops.convs import conv3d_weight_grad, hand_wgrad_shape, to_nchw, to_ncdhw
 from deformablelka_tpu_torch.ops.deform2d import deform_conv2d
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform2d_plain
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d_backward as deform2d_bwd_plain
@@ -773,6 +784,102 @@ def phase_chain_backward_kernel():
           f"{per_step['plain_ms']:.2f} ms, yardstick (the parent's path) "
           f"{per_step['yardstick_ms']:.2f} ms (device {per_step['yardstick_device_ms']:.2f})",
           flush=True)
+    return rows
+
+
+WGRAD_RTOL = 1e-5   # ‖kernel − float64‖ ≤ WGRAD_RTOL · ‖float64‖, per conv
+
+
+def wgrad_cells() -> dict:
+    """{cell: {(B, D, H, W, Ci, Co, k): convs a step}}: the dense stride-1
+    1³ and 3³ convs of the benchmark's two training cells whose weight
+    gradient `ops.convs` can give kernel 7 (`train_path.dense_wgrad_sites`)."""
+    return {"synapse3d.train": train_path.dense_wgrad_sites(
+                dlka_former_synapse(14, do_ds=True, img_size=PATCH, remat=True, device="meta"),
+                (TRAIN_BATCH, *PATCH, 1)),
+            "swin_unetr.train": train_path.dense_wgrad_sites(
+                swin_unetr_btcv(14, img_size=(96, 96, 96), feature_size=48, remat=True,
+                                device="meta"), (TRAIN_BATCH, 96, 96, 96, 1))}
+
+
+def _rel_norm(got, ref) -> float:
+    return ((got.double() - ref).norm() / ref.norm()).item()
+
+
+def phase_conv3d_wgrad(out_dir: Path | None = None) -> list:
+    """Phase 26: kernel 7 (`conv3d_wgrad`) at every dense weight-gradient
+    shape of `synapse3d.train` and `swin_unetr.train`, x and g N(0, 1):
+    ‖Δ‖ / ‖·‖ against the plain version in float64 (beside cuDNN's own),
+    two calls bitwise equal, and per call the kernel's time (CUDA events,
+    in turns with the yardstick; device time), its bound (max(2·N·Ci·Co·k³
+    / 67 TFLOP/s, (|x| + |g|) / 3.35 TB/s)), the plain version (float32,
+    one GEMM a tap) and the yardstick: cuDNN's f32 `conv3d_weight` on the
+    same channels-last views, the call autograd of `F.conv3d` makes (the
+    port's path where the kernel is not engaged). The table that sets
+    `convs.hand_wgrad_shape`; a row's `sites` are its convs a step where
+    that rule engages the kernel, else 0. Rows also go to
+    `out_dir`/conv3d_wgrad.json."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4326)
+    rows = []
+    for cell, sites in wgrad_cells().items():
+        for (B, D, H, W, ci, co, k), n in sorted(sites.items(), key=lambda kv: -kv[0][1]):
+            x = torch.randn(B, D, H, W, ci, device=dev, generator=gen)
+            g = torch.randn(B, D, H, W, co, device=dev, generator=gen)
+            ref = conv3d_weight_grad(x.double(), g.double(), k)
+            got = kernels.conv3d_wgrad(x, g, k)
+            bitwise = torch.equal(got, kernels.conv3d_wgrad(x, g, k))
+            shape = (co, ci, k, k, k)
+            library = lambda: torch.nn.grad.conv3d_weight(to_ncdhw(x), shape, to_ncdhw(g),
+                                                          padding=k // 2)
+            err, lib_err = _rel_norm(got, ref), _rel_norm(library(), ref)
+            del ref, got
+            kernel = lambda: kernels.conv3d_wgrad(x, g, k)
+            once = max(timed_ms(kernel, 1, warmup=1), timed_ms(library, 1, warmup=1))
+            reps = int(min(50, max(1, 60 / once)))
+            ms, lms = timed_in_turns_ms(kernel, library, reps, windows=3)
+            dms = device_ms(kernel, reps, "conv3d_wgrad (hand kernel)")
+            ldms = device_ms(library, reps)
+            pms = timed_ms(lambda: conv3d_weight_grad(x, g, k), 1, warmup=1)
+            N = B * D * H * W
+            bnd = bound_ms(4 * N * (ci + co), 2 * N * ci * co * k ** 3)
+            bms, by = _bound(bnd)
+            plan = kernels.conv3d_wgrad_plan(B, D, H, W, ci, co, k)
+            engaged = hand_wgrad_shape(ci, co, k, N)
+            row = dict(cell=cell, shape=[B, D, H, W], ci=ci, co=co, k=k, per_step=n,
+                       sites=n if engaged else 0, err=err, cudnn_err=lib_err, bitwise=bitwise,
+                       ms=ms, device_ms=dms, bound_ms=bms, bound_by=by, plain_ms=pms,
+                       lib_ms=None, yardstick_ms=lms, yardstick_device_ms=ldms,
+                       engaged=engaged, **bnd,
+                       plan=dict(tile=plan.channel_tile, brick=plan.tile, grid=plan.grid,
+                                 threads=plan.threads, smem=plan.smem_bytes))
+            rows.append(row)
+            print(f"phase 26 conv3d_wgrad {cell} B={B} {D}x{H}x{W} {ci}->{co} {k}^3 "
+                  f"x{n}/step: err {err:.2e} (cuDNN {lib_err:.2e}; tol {WGRAD_RTOL:g}), "
+                  f"bitwise {bitwise}; kernel {ms:.4f} ms (device {dms:.4f}), bound {bms:.4f} "
+                  f"({by}), plain {pms:.3f}, yardstick cuDNN conv3d_weight {lms:.4f} (device "
+                  f"{ldms:.4f}); yardstick / kernel {lms / ms:.2f}; plan {row['plan']}",
+                  flush=True)
+            if not (err <= WGRAD_RTOL and bitwise):
+                fail(f"conv3d_wgrad disagrees with its plain version at {row}")
+            del x, g
+            torch.cuda.empty_cache()
+    for cell in ("synapse3d.train", "swin_unetr.train"):
+        rs = [r for r in rows if r["cell"] == cell]
+        tot = {key: sum(r["per_step"] * r[key] for r in rs)
+               for key in ("ms", "device_ms", "bound_ms", "yardstick_ms", "yardstick_device_ms")}
+        eng = [r for r in rs if r["engaged"]]
+        print(f"phase 26 conv3d_wgrad per step of {cell}: {sum(r['per_step'] for r in rs)} "
+              f"weight gradients, kernel {tot['ms']:.2f} ms (device {tot['device_ms']:.2f}), "
+              f"bound {tot['bound_ms']:.3f}, yardstick {tot['yardstick_ms']:.2f} (device "
+              f"{tot['yardstick_device_ms']:.2f}); engaged by hand_wgrad_shape: "
+              f"{sum(r['per_step'] for r in eng)} a step, kernel "
+              f"{sum(r['per_step'] * r['device_ms'] for r in eng):.2f} device-ms against the "
+              f"yardstick's {sum(r['per_step'] * r['yardstick_device_ms'] for r in eng):.2f}",
+              flush=True)
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "conv3d_wgrad.json").write_text(json.dumps(rows, indent=1))
     return rows
 
 
@@ -2302,7 +2409,9 @@ GENERIC_UNET_NARROW = dict(base_num_features=8, max_features=32)
 
 
 def _no_launches(counts: dict) -> bool:
-    return not any(counts.values())
+    """No launch of the D-LKA block's kernels; kernel 7 (`conv3d_wgrad`, the
+    dense convs' weight gradient) serves any 3D model's training."""
+    return not any(n for name, n in counts.items() if name != "conv3d_wgrad")
 
 
 def _baseline_card_vs_cpu(name) -> tuple:
@@ -2847,7 +2956,9 @@ def kernel_line(rows, launches):
                "dw_chain2d": ("deformablelka_tpu_torch/csrc/dw_chain2d.cu",
                               "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:261"),
                "dwconv3d": ("deformablelka_tpu_torch/csrc/dwconv3d.cu",
-                            "deformablelka_tpu/ops/pallas/dwconv3d_kernel.py:172")}
+                            "deformablelka_tpu/ops/pallas/dwconv3d_kernel.py:172"),
+               "conv3d_wgrad": ("deformablelka_tpu_torch/csrc/conv3d_wgrad.cu",
+                                "none (the JAX package leaves the dense convs' gradient to XLA)")}
     per = {"deform_conv3d": "one forward at batch 8: the 21 launches at the four stage shapes",
            "dw_chain3d": "one forward at batch 8: the 21 launches at the four stage shapes",
            "deform_conv3d_bwd": "one training step at batch 2: the 21 launches at the four stage shapes",
@@ -2855,7 +2966,9 @@ def kernel_line(rows, launches):
            "deform_dw_conv2d": "one flagship forward at batch 24: the 12 launches at the three decoder shapes",
            "deform_dw_conv2d_bwd": "one flagship training step at batch 24: the 12 launches at the three decoder shapes",
            "dw_chain2d": "one LKA Baseline forward at batch 24: the 6 launches at the three decoder shapes",
-           "dwconv3d": "one forward at batch 8: the 9 launches at 8³×128 (5³ dil 3) and 4³×256 (3³ dil 2)"}
+           "dwconv3d": "one forward at batch 8: the 9 launches at 8³×128 (5³ dil 3) and 4³×256 (3³ dil 2)",
+           "conv3d_wgrad": "one training step of synapse3d.train and one of swin_unetr.train "
+                           "at batch 2: the 116 + 14 launches `convs.hand_wgrad_shape` engages"}
     out = []
     for name, rs in rows.items():
         per_call = lambda key: sum(r["sites"] * r[key] for r in rs)
@@ -2903,6 +3016,7 @@ def main() -> int:
     launches, wall_main, seg_main = phase_main_path()
     rows["deform_conv3d_bwd"] = phase_backward_kernel()
     rows["dw_chain3d_bwd"] = phase_chain_backward_kernel()
+    rows["conv3d_wgrad"] = [r for r in phase_conv3d_wgrad() if r["engaged"]]
     phase_small_train_step()
     per_step, _ = phase_train_path()
     train_launches = {n: sum(c[n] for c in per_step) for n in per_step[0]}

@@ -99,8 +99,96 @@ def conv3d(x, w, bias=None, *, stride=1, padding="same", dilation=1,
     else:
         pad = _tuple(padding, 3)
     w, bias, after = in_input_type(x, w, bias)
-    y = F.conv3d(to_ncdhw(x), w, bias, st, pad, dil, groups)
+    if _hand_wgrad(x, w, st, pad, dil, groups):
+        y = _Conv3dHandWgrad.apply(x, w, bias, pad)
+    else:
+        y = F.conv3d(to_ncdhw(x), w, bias, st, pad, dil, groups)
     return add_bias(to_ndhwc(y), after)
+
+
+_ONES3 = (1, 1, 1)
+
+
+def hand_wgrad_shape(ci: int, co: int, k: int, voxels: int) -> bool:
+    """Whether the hand kernel computes the weight gradient of a dense
+    stride-1 k³ conv of `ci` → `co` channels over `voxels` voxels (B·D·H·W)
+    faster than cuDNN's f32 channels-last one, by the device times of
+    `chip_smoke.py` phase 26 at every such shape of the two training cells
+    (PERF.md §6). 3³: up to 64 × 81 channel pairs, where cuDNN is 1.8-148×
+    slower; from 96 × 96 and 128 × 81 pairs up cuDNN is 1.03-6.3× faster.
+    1³: from 1024 voxels (cuDNN 1.2-400× slower); at 128 and 432 voxels,
+    with 256-768 channels, cuDNN is 2-3× faster."""
+    if k == 1:
+        return voxels >= 1024
+    return k == 3 and ci * co <= 64 * 81
+
+
+def dense_unit_stride(x, w, st, pad, dil, groups) -> bool:
+    """A float32 conv the hand weight gradient takes: x (B, D, H, W, Ci),
+    a dense (groups 1) cubic 1³ or 3³ kernel at stride 1, dilation 1 and
+    "same" padding."""
+    k = w.shape[2]
+    return (groups == 1 and x.dtype is torch.float32 and w.dtype is torch.float32
+            and x.ndim == 5 and k in (1, 3) and w.shape[3] == k and w.shape[4] == k
+            and st == _ONES3 and dil == _ONES3 and pad == (k // 2,) * 3)
+
+
+def _hand_wgrad(x, w, st, pad, dil, groups) -> bool:
+    """`conv3d`'s weight gradient goes to the hand kernel
+    (`kernels.conv3d_wgrad`) where autograd will ask for it, on the card,
+    for a conv of `dense_unit_stride`'s kind in `hand_wgrad_shape`'s
+    region. Everything else (inference, depthwise, strided, other types)
+    keeps autograd of `F.conv3d`."""
+    return (torch.is_grad_enabled() and w.requires_grad and x.is_cuda
+            and dense_unit_stride(x, w, st, pad, dil, groups)
+            and hand_wgrad_shape(w.shape[1], w.shape[0], w.shape[2], x.numel() // x.shape[-1]))
+
+
+class _Conv3dHandWgrad(torch.autograd.Function):
+    """`F.conv3d` at stride 1, dilation 1, groups 1 on the channels-last
+    view, the same call as `conv3d` makes; its backward asks cuDNN for the
+    data and bias gradients alone (`convolution_backward`, as autograd of
+    `F.conv3d` does) and the hand kernel for the weight gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, pad):
+        ctx.save_for_backward(x, w)
+        ctx.pad = pad
+        ctx.bias_sizes = None if bias is None else [bias.shape[0]]
+        return F.conv3d(to_ncdhw(x), w, bias, _ONES3, pad, _ONES3, 1)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        # imported here: `ops.kernels` imports this module
+        from deformablelka_tpu_torch.ops import kernels
+
+        x, w = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = db = dw = None
+        if need_x or need_b:
+            dx, _, db = torch.ops.aten.convolution_backward(
+                gy, to_ncdhw(x), w, ctx.bias_sizes, _ONES3, ctx.pad, _ONES3, False,
+                (0, 0, 0), 1, (need_x, False, need_b))
+            dx = None if dx is None else to_ndhwc(dx)
+        if need_w:
+            dw = kernels.conv3d_wgrad(x.contiguous(), to_ndhwc(gy).contiguous(), w.shape[2])
+        return dx, dw, db, None
+
+
+def conv3d_weight_grad(x, g, k: int):
+    """The weight gradient (Co, Ci, k, k, k) of `conv3d(x, w)` for a cubic
+    k³ kernel (k odd), stride 1, dilation 1, groups 1, "same" padding, at
+    the cotangent g (B, D, H, W, Co) of its output; x (B, D, H, W, Ci): for
+    each tap, gᵀ times the slice of the zero-padded x it reads. The plain
+    version of `kernels.conv3d_wgrad`."""
+    r = k // 2
+    B, D, H, W, ci = x.shape
+    xp = F.pad(x, (0, 0, r, r, r, r, r, r))
+    gt = g.reshape(-1, g.shape[-1]).t()
+    taps = [gt @ xp[:, a:a + D, b:b + H, c:c + W].reshape(-1, ci)
+            for a in range(k) for b in range(k) for c in range(k)]
+    return torch.stack(taps, -1).reshape(g.shape[-1], ci, k, k, k)
 
 
 def depthwise_conv3d(x, w, bias=None, *, stride=1, padding="same",
@@ -161,6 +249,6 @@ def conv_transpose(x, w, bias=None, *, stride):
 
 
 __all__ = ["same_padding", "in_input_type", "add_bias", "promoted", "conv2d",
-           "depthwise_conv2d", "conv3d",
+           "depthwise_conv2d", "conv3d", "conv3d_weight_grad", "hand_wgrad_shape",
            "depthwise_conv3d", "conv_transpose", "to_nchw", "to_nhwc",
            "to_ncdhw", "to_ndhwc"]

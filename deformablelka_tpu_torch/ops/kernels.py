@@ -20,15 +20,19 @@ forward wrapper on a CUDA tensor is a `torch.autograd.Function`:
 (`deform_conv3d_bwd`), `deform_dw_conv2d`'s (`deform_dw_conv2d_bwd`)
 and `dw_chain3d`'s (`dw_chain3d_bwd`) theirs; those of `dw_chain2d` and
 `dwconv3d` are the VJPs of their plain versions, recomputed. Otherwise
-the forward launches alone. Every launcher takes its pointers and its
+the forward launches alone. `conv3d_wgrad`, the weight gradient of the
+dense stride-1 convs, has no forward here: `ops.convs.conv3d`'s autograd
+Function calls it. Every launcher takes its pointers and its
 launch plan (`deform3d_plan`, `chain3d_plan`, `deform3d_bwd_plan`,
 `chain3d_bwd_plan`, `deform2d_dw_plan`, `deform2d_dw_bwd_plan`,
-`chain2d_plan`, `dwconv3d_plan`: pure functions of the shape, cached) as
+`chain2d_plan`, `dwconv3d_plan`, `conv3d_wgrad_plan`: pure functions of
+the shape, cached) as
 two arrays: at the small shapes the host's time per call sets the pace.
 `wrapper.launches` counts each kernel's calls (the deform conv's second
 pass, which adds the parts of a split K, is part of its one call, as are
 the backward's weight GEMM and its sum of parts, the 2D backward's sum
-of dw's per-tile parts, and the chain backward's three passes and sum).
+of dw's per-tile parts, the chain backward's three passes and sum, and
+the weight gradient's sum of parts).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from pathlib import Path
 
 import torch
 
+from deformablelka_tpu_torch.ops.convs import conv3d_weight_grad as conv3d_wgrad_plain
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform_dw_conv2d_plain
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d_backward
 from deformablelka_tpu_torch.ops.deform3d import deform_conv3d as deform_conv3d_plain
@@ -128,6 +133,7 @@ def library() -> ctypes.CDLL:
         lib.dlka_dw_chain3d_bwd.restype = i32
         lib.dlka_dw_chain2d.restype = i32
         lib.dlka_dwconv3d.restype = i32
+        lib.dlka_conv3d_wgrad.restype = i32
         lib.dlka_error_string.argtypes = [i32]
         lib.dlka_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -1099,8 +1105,132 @@ def dwconv3d(x, w, bias, dil: int):
 
 dwconv3d.launches = 0
 
+_WGRAD_THREADS = 256   # csrc/conv3d_wgrad.cu: threads a block, at most
+# registers a thread, for the blocks an SM holds (nvcc -Xptxas -v, sm_90a, with
+# 16-byte loads: 128 at k = 3, the cap of its __launch_bounds__(256, 2), 64 at
+# k = 1; no spills)
+_WGRAD_REGS = {1: 64, 3: 128}
+
+
+def conv3d_wgrad_smem_bytes(k: int, tci: int, bco: int, bci: int, brick: tuple,
+                            threads: int, lanes: int) -> int:
+    """csrc/conv3d_wgrad.cu's shared memory: the brick's x with its halo
+    of k // 2 (`bci` channels, padded to 16 bytes) and its g (`bco`
+    channels); where a unit has several lanes, the same buffer later holds
+    every thread's 4·tci·k sums."""
+    tz, ty, tx = brick
+    staged = (-(-(tz + k - 1) * (ty + k - 1) * (tx + k - 1) * bci // 4) * 4
+              + tz * ty * tx * bco)
+    return 4 * max(staged, threads * 4 * tci * k if lanes > 1 else 0)
+
+
+def _halvings(n: int) -> list:
+    """n, ⌈n / 2⌉, ⌈n / 4⌉, … down to 1."""
+    out = [n]
+    while out[-1] > 1:
+        out.append(-(-out[-1] // 2))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def conv3d_wgrad_plan(B: int, D: int, H: int, W: int, Ci: int, Co: int, k: int) -> LaunchPlan:
+    """conv3d_wgrad's blocks. A unit is 4 output channels × tci input
+    channels (4 where Ci % 4 = 0, else 1) × one tap row (dz, dy); a block's
+    output tile (`channel_tile` = (output, input) channels) holds at most
+    256 units (28 channel-group pairs at k = 3, up to 16 input groups), cut
+    evenly over the channels; `lanes` threads a unit split a brick's rows,
+    up to 256 threads. The brick (`tile`): of the sides n, ⌈n / 2⌉, ⌈n /
+    4⌉, … of each axis, the one that stages the fewest floats over the
+    volume (its halo and the bricks' overhang counted), then the one with
+    rows for the most lanes, the largest, the longest rows, within two
+    blocks an SM at k = 3 (four at k = 1). The voxels' bricks
+    (over the batch) are cut into `parts`, evenly, until the tiles × parts
+    fill the card once. 16-byte loads of x where Ci % 4 = 0 (`vec` bit 0)
+    and of g where Co % 4 = 0 (bit 1); the wrapper drops a bit whose
+    tensor is not 16-byte aligned."""
+    if k not in (1, 3):
+        raise ValueError(f"conv3d_wgrad kernel: k 1 or 3 only, got {k}")
+    if B * D * H * W * max(Ci, Co) >= 2 ** 31 or Co * Ci * k ** 3 >= 2 ** 31:
+        raise ValueError("conv3d_wgrad kernel: too many elements for its indices")
+    tci = 4 if Ci % 4 == 0 else 1
+    ngi, ngo = -(-Ci // tci), -(-Co // 4)
+    nci = min(ngi, 4 if k == 3 else 16)
+    nco = min(ngo, _WGRAD_THREADS // (k * k) // nci)
+    tiles_i, tiles_o = -(-ngi // nci), -(-ngo // nco)
+    nci, nco = -(-ngi // tiles_i), -(-ngo // tiles_o)
+    bci, bco = tci * nci, 4 * nco
+    units = nco * nci * k * k
+    cap = _WGRAD_THREADS // units
+    budget = _SMEM_TWO_BLOCKS if k == 3 else _SMEM_TWO_BLOCKS // 2
+
+    def staged_total(brick):
+        tz, ty, tx = brick
+        bricks = -(-D // tz) * -(-H // ty) * -(-W // tx)
+        return bricks * ((tz + k - 1) * (ty + k - 1) * (tx + k - 1) * bci + tz * ty * tx * bco)
+
+    def smem(brick):
+        lanes = min(cap, brick[0] * brick[1])
+        return conv3d_wgrad_smem_bytes(k, tci, bco, bci, brick, units * lanes, lanes)
+
+    bricks = [(tz, ty, tx) for tz in _halvings(D) for ty in _halvings(H) for tx in _halvings(W)
+              if smem((tz, ty, tx)) <= budget]
+    if not bricks:
+        raise ValueError(f"conv3d_wgrad kernel: one voxel of {bci} + {bco} channels does "
+                         "not fit shared memory")
+    brick = min(bricks, key=lambda t: (staged_total(t), -min(cap, t[0] * t[1]), -math.prod(t),
+                                       -t[2], -t[1]))
+    tz, ty, tx = brick
+    lanes = min(cap, tz * ty)
+    threads = units * lanes
+    smem_bytes = smem(brick)
+    tiles = tiles_i * tiles_o
+    per_sm = max(1, min(2048 // threads, (_SMEM_MAX + 1024) // (smem_bytes + 1024),
+                        65536 // (threads * _WGRAD_REGS[k])))
+    nb = B * -(-D // tz) * -(-H // ty) * -(-W // tx)
+    parts = min(nb, -(-per_sm * _SMS // tiles))
+    parts = -(-nb // -(-nb // parts))   # the same number of bricks a part, but the last
+    vec = (1 if Ci % 4 == 0 else 0) | (2 if Co % 4 == 0 else 0)
+    return LaunchPlan((bco, bci), brick, vec, smem_bytes, (parts, tiles, 1), threads,
+                      _c_ints(B, D, H, W, Ci, Co, k, bco, bci, tz, ty, tx, parts, threads,
+                              units, lanes, smem_bytes),
+                      parts=parts)
+
+
+def conv3d_wgrad(x, g, k: int):
+    """dW (Co, Ci, k, k, k) of `convs.conv3d(x, w)` for a cubic k³ kernel
+    (k 1 or 3), stride 1, dilation 1, groups 1, "same" padding, at the
+    cotangent g (B, D, H, W, Co) of its output; x (B, D, H, W, Ci).
+    Kernel: csrc/conv3d_wgrad.cu (each block's part of the voxels, then a
+    fixed-order sum of the parts: one call). Its scratch: parts × Co × Ci
+    × k³ floats where there are several parts."""
+    if not x.is_cuda:
+        return conv3d_wgrad_plain(x, g, k)
+    B, D, H, W, Ci = x.shape
+    Co = g.shape[-1]
+    dev = x.device
+    _require(x, "x", (B, D, H, W, Ci), dev)
+    _require(g, "g", (B, D, H, W, Co), dev)
+    plan = conv3d_wgrad_plan(B, D, H, W, Ci, Co, k)
+    dw = torch.empty(Co, Ci, k, k, k, device=dev, dtype=torch.float32)
+    part = (torch.empty(plan.parts * dw.numel(), device=dev, dtype=torch.float32)
+            if plan.parts > 1 else None)
+    a = _pointers()
+    a[0] = xp = x.data_ptr()
+    a[1] = gp = g.data_ptr()
+    a[2], a[3] = 0 if part is None else part.data_ptr(), dw.data_ptr()
+    a[4] = _stream(dev)
+    vec = plan.vec & ((xp % 16 == 0) | (gp % 16 == 0) << 1)
+    err = (_lib or library()).dlka_conv3d_wgrad(a, plan.params, vec)
+    if err:
+        _check(err, "conv3d_wgrad")
+    conv3d_wgrad.launches += 1
+    return dw
+
+
+conv3d_wgrad.launches = 0
+
 WRAPPERS = (deform_conv3d, dw_chain3d, deform_conv3d_bwd, deform_dw_conv2d,
-            deform_dw_conv2d_bwd, dw_chain2d, dwconv3d, dw_chain3d_bwd)
+            deform_dw_conv2d_bwd, dw_chain2d, dwconv3d, dw_chain3d_bwd, conv3d_wgrad)
 
 
 def reset_launches() -> None:

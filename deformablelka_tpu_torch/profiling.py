@@ -157,6 +157,8 @@ def kernel_class(name: str) -> str:
         return "dw_chain2d (hand kernel)"
     if "dwconv3d_kernel" in name:
         return "dwconv3d (hand kernel)"
+    if "conv3d_wgrad" in name:
+        return "conv3d_wgrad (hand kernel)"
     low = name.lower()
     if any(s in low for s in ("conv", "cudnn", "xmma", "implicit", "gemm",
                               "sm90", "cutlass", "wgrad", "dgrad")):

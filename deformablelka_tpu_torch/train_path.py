@@ -26,14 +26,17 @@ kernel class and by kernel.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from typing import Callable
+from unittest import mock
 
 import numpy as np
 import torch
 
 from deformablelka_tpu_torch.main_path import BLOCKS, drive_gates
 from deformablelka_tpu_torch.models.dlka_former import dlka_former_synapse
+from deformablelka_tpu_torch.ops import convs, kernels
 from deformablelka_tpu_torch.profiling import device_profile, print_profile
 from deformablelka_tpu_torch.training.losses import poly_lr
 from deformablelka_tpu_torch.training.train_step import make_sgd, make_train_step
@@ -47,7 +50,40 @@ LR = poly_lr(0, 1000, 1e-2)
 LAUNCHES_PER_STEP = {"deform_conv3d": 2 * BLOCKS, "dw_chain3d": 2 * BLOCKS,
                      "deform_conv3d_bwd": BLOCKS, "deform_dw_conv2d": 0,
                      "deform_dw_conv2d_bwd": 0, "dw_chain2d": 0, "dwconv3d": 0,
-                     "dw_chain3d_bwd": BLOCKS}
+                     "dw_chain3d_bwd": BLOCKS, "conv3d_wgrad": 116}
+# conv3d_wgrad: of the step's 155 dense stride-1 convs (7 a block, encoder1's
+# 3, decoder2's 2, the three outputs), all but the 39 at 8³ and 4³, where
+# cuDNN's weight gradient is the faster (`convs.hand_wgrad_shape`)
+
+
+def dense_wgrad_sites(model: torch.nn.Module, shape) -> Counter:
+    """{(B, D, H, W, Ci, Co, k): convs} over one forward of `model` (moved
+    to the meta device) on a float32 input of `shape` (B, D, H, W, C): the
+    convs whose weight gradient `ops.convs` can give the hand kernel
+    (`convs.dense_unit_stride`, weights that require a gradient), each
+    once a training step (remat's recompute asks no second gradient)."""
+    sites = Counter()
+
+    def record(x, w, st, pad, dil, groups):
+        if w.requires_grad and convs.dense_unit_stride(x, w, st, pad, dil, groups):
+            sites[(*x.shape, w.shape[0], w.shape[2])] += 1
+        return False
+
+    def deform(x, offset, w, bias=None):  # its shape alone: the plain gather is slow on meta
+        return x.new_empty(*x.shape[:-1], w.shape[-1])
+
+    model = model.to("meta")
+    with mock.patch.object(convs, "_hand_wgrad", record), \
+            mock.patch.object(kernels, "deform_conv3d", deform), torch.enable_grad():
+        model(torch.zeros(shape, device="meta"))
+    return sites
+
+
+def hand_wgrads(sites: Counter) -> int:
+    """The weight gradients among `sites` that the hand kernel computes
+    (`convs.hand_wgrad_shape`)."""
+    return sum(n for (B, D, H, W, ci, co, k), n in sites.items()
+               if convs.hand_wgrad_shape(ci, co, k, B * D * H * W))
 
 
 @dataclass

@@ -84,6 +84,9 @@ def kernel_ops(name: str, args) -> int:
         K, dil = args[1].shape[0], args[3]
         taps = _taps_inside(D, K, dil) * _taps_inside(H, K, dil) * _taps_inside(W, K, dil)
         return B * C * (2 * taps + D * H * W)
+    if name == "conv3d_wgrad":        # a multiply-add per voxel, tap and channel pair
+        k = args[2]
+        return 2 * x.numel() * args[1].shape[-1] * k ** 3
     raise KeyError(name)
 
 

@@ -316,12 +316,18 @@ def test_chain_function_launches_the_backward_kernel(cuda):
 def test_training_step_launches_match_the_table(cuda):
     """A training step of the published model (remat, deep supervision) at
     16×32×32 launches each kernel as `train_path.LAUNCHES_PER_STEP` says:
-    the chain's backward once a block."""
+    the chain's backward once a block; the dense weight gradient (kernel
+    7, whose region depends on the voxels) at the sites in its region at
+    this size."""
     path = train_path.build(seed=0, img_size=(16, 32, 32))
+    sites = train_path.dense_wgrad_sites(
+        dlka_former_synapse(14, do_ds=True, img_size=(16, 32, 32), remat=True, device="meta"),
+        (train_path.BATCH, 16, 32, 32, 1))
     kernels.reset_launches()
     train_path.step(path)
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == train_path.LAUNCHES_PER_STEP
+    assert kernels.launch_counts() == {**train_path.LAUNCHES_PER_STEP,
+                                       "conv3d_wgrad": train_path.hand_wgrads(sites)}
     assert train_path.LAUNCHES_PER_STEP["dw_chain3d_bwd"] == main_path.BLOCKS
 
 
