@@ -303,6 +303,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 from unittest import mock
 
@@ -386,6 +387,11 @@ MIN_AGREEMENT = 0.999       # argmax share, kernels vs plain versions
 def fail(msg: str) -> None:
     print(f"FAILED: {msg}", flush=True)
     raise SystemExit(1)
+
+
+def _summed(counts) -> dict:
+    """The launches of several runs (`kernels.launch_counts()` each) added."""
+    return dict(sum(map(Counter, counts), Counter()))
 
 
 def timed_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -573,8 +579,8 @@ def phase_small_configs():
     """Phase 14: the other 3D configurations, card against CPU."""
     seq = phase_small_reference(
         14, trans_block="TransformerBlock_Deform_LKA_Channel_sequential")
-    if seq["dwconv3d"] != 9:
-        fail(f"the Channel-sequential forward launched dwconv3d {seq['dwconv3d']} times")
+    if seq.get("dwconv3d") != 9:
+        fail(f"the Channel-sequential forward launched dwconv3d {seq.get('dwconv3d')} times")
     phase_small_reference(14, dlka_former_acdc, (8, 64, 64), 4)
     phase_small_reference(14, dlka_net_pancreas, (32, 32, 32), 2)
 
@@ -606,7 +612,7 @@ def phase_main_path(phase=4, trans_block=main_path.DEFAULT_BLOCK, expected=None)
           f"patch {PATCH}, {TILES} tiles x 8 flips: {wall:.3f} s wall, peak device "
           f"memory {peak / 2**30:.3f} GiB, launches {launches}", flush=True)
     per_forward = expected or {"deform_conv3d": BLOCKS, "dw_chain3d": BLOCKS}
-    expected = {n: TILES * per_forward.get(n, 0) for n in launches}
+    expected = {n: TILES * c for n, c in per_forward.items()}
     if launches != expected:
         fail(f"main path launches {launches}, expected {expected}")
     if seg.shape != VOLUME or seg.dtype != np.uint8 or seg.max() >= 14:
@@ -1157,9 +1163,7 @@ def phase_2d_path():
         wall = time.perf_counter() - t0
         launches[config] = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        expected = {n: 0 for n in launches[config]}
-        expected.update({n: forwards * c for n, c
-                         in main_path2d.LAUNCHES_PER_FORWARD[config].items()})
+        expected = {n: forwards * c for n, c in main_path2d.LAUNCHES_PER_FORWARD[config].items()}
         print(f"phase 9 2D path {config}: predict_volume {image.shape} at "
               f"{main_path2d.PATCH}, {forwards} forwards of {BATCH_2D}: {wall:.3f} s/case, "
               f"peak device memory {peak / 2**30:.3f} GiB, launches {launches[config]}",
@@ -1290,8 +1294,7 @@ def phase_dwconv3d_kernel():
 def _expected_3d(forwards: int) -> dict:
     """Launches of a 3D path of the published block: 21 of each 3D forward
     kernel per forward, none of the others."""
-    return {fn.__name__: BLOCKS * forwards if fn in (kernels.deform_conv3d, kernels.dw_chain3d)
-            else 0 for fn in kernels.WRAPPERS}
+    return {"deform_conv3d": BLOCKS * forwards, "dw_chain3d": BLOCKS * forwards}
 
 
 def phase_synapse_cli():
@@ -1565,8 +1568,7 @@ def phase_synapse_trainer():
         if not (trainer.epoch == trainer_path.EPOCHS and trainer.step == steps
                 and np.all(np.isfinite(trainer.all_tr_losses + trainer.all_val_losses))):
             fail(f"bad training bookkeeping: epoch {trainer.epoch} step {trainer.step}")
-        run_launches = {n: sum(c[n] for c in launches["step"] + launches["val_batch"])
-                        for n in launches["step"][0]}
+        run_launches = _summed(launches["step"] + launches["val_batch"])
 
         # -val: every validation case, then one of them through the plain versions
         kernels.reset_launches()
@@ -1775,7 +1777,7 @@ def phase_pancreas_trainer():
             fail(f"bad Pancreas metrics {avg}")
         del trainer
     torch.cuda.empty_cache()
-    return {n: sum(c[n] for c in per_iteration) for n in per_iteration[0]}, rows
+    return _summed(per_iteration), rows
 
 
 # phase 19's offset scales: a trained checkpoint's (|Δ| ≤ 0.034, PERF.md
@@ -1950,7 +1952,6 @@ def _bwd_2d_on_step_inputs(trainer, batch) -> float:
         captured.append(tuple(t.detach().clone() for t in (x, offset, w, g)) + (dil,))
         return real(x, offset, w, g, dil)
 
-    capture.launches = 0  # the wrapper counts its launch on the name it finds
     with mock.patch.object(kernels, "deform_dw_conv2d_bwd", capture):
         trainer.train_step(batch)
     total = 0.0
@@ -2066,7 +2067,7 @@ def _synapse2d_cli(tmp: Path) -> dict:
     if not ((tmp / "out" / "ckpt" / "best_model").is_dir()
             and np.all(np.isfinite(trainer.losses)) and trainer.step == steps):
         fail("train_synapse2d did not train or write best_model")
-    step_launches = {n: sum(c[n] for c in rec.launches) for n in rec.launches[0]}
+    step_launches = _summed(rec.launches)
     del trainer
 
     predictor = test_synapse2d.load_predictor(tmp / "out")
@@ -2083,8 +2084,7 @@ def _synapse2d_cli(tmp: Path) -> dict:
         wall_p = time.perf_counter() - t0
     agree = min(float((r[3] == lp).mean()) for r, lp in zip(res, labels_p))
     forwards = len(cases) * -(-trainer2d_path.VOLUME[0] // BATCH_2D)
-    expected = {n: 0 for n in test_launches}
-    expected["deform_dw_conv2d"] = 12 * forwards
+    expected = {"deform_dw_conv2d": 12 * forwards}
     print(f"phase 21 Synapse 2D test CLI (evaluate_volumes) on best_model: {wall:.3f} s for "
           f"{len(cases)} volumes, mean Dice {[round(r[1], 4) for r in res]}, launches "
           f"{test_launches}; vs plain versions ({wall_p:.3f} s): label agreement {agree:.6f} "
@@ -2124,8 +2124,7 @@ def _zoo_clis(tmp: Path, cases) -> dict:
     if not ((tmp / "zoo_out" / "ckpt" / "best_model").is_dir()
             and np.all(np.isfinite(trainer.losses))):
         fail("train_synapse2d --model dae_lka did not train or write best_model")
-    out["train_synapse2d --model dae_lka, 1 epoch of 2 batches"] = {
-        n: sum(c[n] for c in rec.launches) for n in rec.launches[0]}
+    out["train_synapse2d --model dae_lka, 1 epoch of 2 batches"] = _summed(rec.launches)
     del trainer
 
     predictor = test_synapse2d.load_predictor(tmp / "zoo_out", model="dae_lka")
@@ -2138,8 +2137,7 @@ def _zoo_clis(tmp: Path, cases) -> dict:
         labels_p = [predictor.predict_volume(image) for image, _, _ in cases]
     agree = min(float((r[3] == lp).mean()) for r, lp in zip(res, labels_p))
     forwards = len(cases) * -(-trainer2d_path.VOLUME[0] // BATCH_2D)
-    expected = {n: 0 for n in launches}
-    expected["dw_chain2d"] = main_path2d.LAUNCHES_PER_FORWARD["dae_lka"]["dw_chain2d"] * forwards
+    expected = {"dw_chain2d": main_path2d.LAUNCHES_PER_FORWARD["dae_lka"]["dw_chain2d"] * forwards}
     print(f"phase 21 test_synapse2d --model dae_lka (evaluate_volumes) on best_model: "
           f"{wall:.3f} s for {len(cases)} volume(s) of {trainer2d_path.VOLUME}, mean Dice "
           f"{[round(r[1], 4) for r in res]}, launches {launches}; label agreement with the "
@@ -2168,15 +2166,14 @@ def _zoo_clis(tmp: Path, cases) -> dict:
           f"{_seconds(rec.times['step'])} s; best val loss {trainer.best_val_loss:.6f}; test "
           f"{metrics}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
           f"GiB; launches per step {rec.launches}", flush=True)
-    if any(any(c.values()) for c in rec.launches):
+    if any(rec.launches):
         fail(f"train_skin --model transunet launched a hand kernel: {rec.launches}")
     if not ((tmp / "skin_transunet" / "best_model").is_dir()
             and np.isfinite(trainer.best_val_loss)
             and np.all(np.isfinite(list(metrics.values())))):
         fail("train_skin --model transunet did not write its best checkpoint or its "
              "metrics are not finite")
-    out["train_skin --model transunet, 1 epoch of 2 batches"] = {
-        n: sum(c[n] for c in rec.launches) for n in rec.launches[0]}
+    out["train_skin --model transunet, 1 epoch of 2 batches"] = _summed(rec.launches)
     del trainer
     torch.cuda.empty_cache()
     return out
@@ -2199,7 +2196,7 @@ def _lka_baseline_step():
         fail(f"LKA Baseline step launches {per_step}")
     if not (np.all(np.isfinite(losses)) and abs(loss_k - loss_p) <= LOSS_RTOL * abs(loss_p)):
         fail("the LKA Baseline's loss through the kernels disagrees with the plain run")
-    return {n: sum(c[n] for c in per_step) for n in per_step[0]}
+    return _summed(per_step)
 
 
 def _skin_cli(tmp: Path) -> dict:
@@ -2225,7 +2222,7 @@ def _skin_cli(tmp: Path) -> dict:
     if not ((tmp / "skin_out" / "best_model").is_dir() and np.isfinite(trainer.best_val_loss)
             and trainer.scheduler.scale == 1.0 and np.all(np.isfinite(list(metrics.values())))):
         fail("train_skin did not write its best checkpoint or its metrics are not finite")
-    return {n: sum(c[n] for c in rec.launches) for n in rec.launches[0]}
+    return _summed(rec.launches)
 
 
 def phase_2d_clis():
@@ -2326,10 +2323,10 @@ def phase_2d_zoo() -> dict:
         with torch.no_grad():
             labels = model(x).argmax(-1)
         launches = kernels.launch_counts()
-        expected = {n: main_path2d.LAUNCHES_PER_FORWARD[name].get(n, 0) for n in launches}
+        expected = main_path2d.LAUNCHES_PER_FORWARD[name]
         fwd_launches[name] = launches
         agree = None
-        if expected["dw_chain2d"]:
+        if expected:
             with plain_versions(), torch.no_grad():
                 agree = float((model(x).argmax(-1) == labels).float().mean())
         print(f"phase 22 {name} full width ({n_params / 1e6:.2f} M parameters) 224^2 "
@@ -2347,7 +2344,7 @@ def phase_2d_zoo() -> dict:
         times, losses, per_step, trainer, peak = _train_steps_2d(batch, name)
         del trainer
         torch.cuda.empty_cache()
-        step_launches[name] = {n: sum(c[n] for c in per_step) for n in per_step[0]}
+        step_launches[name] = _summed(per_step)
         print(f"phase 22 {name} Trainer2D B={trainer2d_path.BATCH} "
               f"{trainer2d_path.IMG}^2: {float(np.median(times[1:])):.4f} s/step (median of "
               f"steps 2-3; steps {_seconds(times)} s), peak device memory "
@@ -2357,7 +2354,7 @@ def phase_2d_zoo() -> dict:
             fail(f"{name} step launches {per_step}")
         if not np.all(np.isfinite(losses)):
             fail(f"a {name} training loss is not finite")
-        if expected["dw_chain2d"]:
+        if expected:
             # the 2D gates hold the update p' - p, as phase 20: a gradient
             # whose exact value is 0 (the keys' bias under the softmax over
             # tokens) differs by up to 1.2 relative between two correct runs
@@ -2391,10 +2388,8 @@ def phase_2d_zoo() -> dict:
             del upd_k, upd_p, grads_k, grads_p
             torch.cuda.empty_cache()
         print(f"phase 22 {name}: {time.perf_counter() - t_start:.1f} s", flush=True)
-    return {"2D zoo, one forward of each of the 11": {
-                n: sum(c[n] for c in fwd_launches.values()) for n in kernels.launch_counts()},
-            "2D zoo Trainer2D, 3 steps of each of the 11": {
-                n: sum(c[n] for c in step_launches.values()) for n in kernels.launch_counts()}}
+    return {"2D zoo, one forward of each of the 11": _summed(fwd_launches.values()),
+            "2D zoo Trainer2D, 3 steps of each of the 11": _summed(step_launches.values())}
 
 
 # the baselines' narrow widths for phase 23's card-against-CPU forward (32³,
@@ -2494,7 +2489,7 @@ def _pancreas_baseline(name) -> dict:
         fail(f"bad {name} Pancreas metrics {avg}")
     del trainer, sw
     torch.cuda.empty_cache()
-    return {n: sum(c[n] for c in per_iteration) + tester[n] for n in tester}
+    return _summed(per_iteration + [tester])
 
 
 def _generic_unet_2d() -> dict:
@@ -2562,7 +2557,7 @@ def _generic_unet_2d() -> dict:
             fail(f"run_training 2d: {len(steps)} steps, losses {losses}")
         del trainer
     torch.cuda.empty_cache()
-    return {n: sum(c[n] for c in steps + vals) for n in steps[0]}
+    return _summed(steps + vals)
 
 
 def phase_baselines() -> dict:
@@ -2607,8 +2602,7 @@ def _meshed_volume(mesh, seg_one_device) -> dict:
           f"s/volume, one-device {', '.join(f'{w:.3f}' for w in walls['one'])} s/volume; "
           f"labels equal to phase 4's on {equal} of the voxels; launches a meshed volume "
           f"{counts}", flush=True)
-    expected = {n: TILES * {"deform_conv3d": BLOCKS, "dw_chain3d": BLOCKS}.get(n, 0)
-                for n in counts[0]}
+    expected = _expected_3d(TILES)
     if any(c != expected for c in counts):
         fail(f"meshed main path launches {counts}, expected {expected}")
     if any(e != 1.0 for e in equal):
@@ -2664,7 +2658,7 @@ def _dp_step(mesh) -> dict:
         fail(f"data-parallel losses {losses}")
     del path, ref, step
     torch.cuda.empty_cache()
-    return {n: sum(c[n] for c in per_step) for n in per_step[0]}
+    return _summed(per_step)
 
 
 def _rel_err(got, ref) -> tuple:
@@ -2844,7 +2838,7 @@ def _bf16_pancreas_tester() -> dict:
         t0 = time.perf_counter()
         avg = pancreas.test_all_case(engines[torch.bfloat16], [case], verbose=False)
         wall = time.perf_counter() - t0
-        expected = _expected_3d(tiles) if name == "dlka_net" else {n: 0 for n in launches}
+        expected = _expected_3d(tiles) if name == "dlka_net" else {}
         print(f"phase 25 Pancreas tester, bf16 input, --model {name}: sliding window "
               f"{walls[torch.bfloat16]:.3f} s (f32: {walls[None]:.3f} s), {wall:.3f} s/case "
               f"with the host metrics ({tiles} tiles); labels vs f32 "
@@ -2918,8 +2912,8 @@ def _bf16_2d_latency(latency_f32: float) -> dict:
           f"50), in turns with the f32 input's {' / '.join(f'{m:.3f}' for m in ms['f32'])} "
           f"(phase 11, f32: {latency_f32:.3f} ms); logits {logits.dtype}, labels vs plain "
           f"{agree:.6f}; launches {launches}", flush=True)
-    expected = {n: main_path2d.LAUNCHES_PER_FORWARD["dlka"].get(n, 0) for n in launches}
-    if launches != expected or logits.dtype != torch.float32 or agree < MIN_AGREEMENT:
+    if (launches != main_path2d.LAUNCHES_PER_FORWARD["dlka"] or logits.dtype != torch.float32
+            or agree < MIN_AGREEMENT):
         fail(f"bf16 2D forward: launches {launches}, logits {logits.dtype}, agreement {agree}")
     del model
     return launches
@@ -2938,52 +2932,24 @@ def phase_bf16_input(wall_f32: float, latency_f32: float) -> dict:
 
 
 def kernel_line(rows, launches):
-    """rows[name]: the per-stage measurements; launches[name]: counts by path."""
-    sources = {"deform_conv3d": ("deformablelka_tpu_torch/csrc/deform3d.cu",
-                                 "deformablelka_tpu/ops/pallas/deform3d_kernel.py:1008"),
-               "dw_chain3d": ("deformablelka_tpu_torch/csrc/dw_chain3d.cu",
-                              "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:240"),
-               "deform_conv3d_bwd": ("deformablelka_tpu_torch/csrc/deform3d_bwd.cu",
-                                     "deformablelka_tpu/ops/pallas/deform3d_bwd_kernel.py:182"),
-               "dw_chain3d_bwd": ("deformablelka_tpu_torch/csrc/dw_chain3d_bwd.cu",
-                                  "none (the JAX package differentiates the plain chain, "
-                                  "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:252)"),
-               "deform_dw_conv2d": ("deformablelka_tpu_torch/csrc/deform2d_dw.cu",
-                                    "deformablelka_tpu/ops/pallas/deform2d_kernel.py:182"),
-               "deform_dw_conv2d_bwd": ("deformablelka_tpu_torch/csrc/deform2d_dw_bwd.cu",
-                                        "deformablelka_tpu/ops/pallas/deform2d_kernel.py:194 "
-                                        "(its VJP; deformablelka_tpu/ops/deform2d.py:336)"),
-               "dw_chain2d": ("deformablelka_tpu_torch/csrc/dw_chain2d.cu",
-                              "deformablelka_tpu/ops/pallas/lka_fused_kernel.py:261"),
-               "dwconv3d": ("deformablelka_tpu_torch/csrc/dwconv3d.cu",
-                            "deformablelka_tpu/ops/pallas/dwconv3d_kernel.py:172"),
-               "conv3d_wgrad": ("deformablelka_tpu_torch/csrc/conv3d_wgrad.cu",
-                                "none (the JAX package leaves the dense convs' gradient to XLA)")}
-    per = {"deform_conv3d": "one forward at batch 8: the 21 launches at the four stage shapes",
-           "dw_chain3d": "one forward at batch 8: the 21 launches at the four stage shapes",
-           "deform_conv3d_bwd": "one training step at batch 2: the 21 launches at the four stage shapes",
-           "dw_chain3d_bwd": "one training step at batch 2: the 21 launches at the four stage shapes",
-           "deform_dw_conv2d": "one flagship forward at batch 24: the 12 launches at the three decoder shapes",
-           "deform_dw_conv2d_bwd": "one flagship training step at batch 24: the 12 launches at the three decoder shapes",
-           "dw_chain2d": "one LKA Baseline forward at batch 24: the 6 launches at the three decoder shapes",
-           "dwconv3d": "one forward at batch 8: the 9 launches at 8³×128 (5³ dil 3) and 4³×256 (3³ dil 2)",
-           "conv3d_wgrad": "one training step of synapse3d.train and one of swin_unetr.train "
-                           "at batch 2: the 116 + 14 launches `convs.hand_wgrad_shape` engages"}
+    """rows[name]: (what its sums are per, the per-stage measurements);
+    launches[path]: counts by kernel."""
     out = []
-    for name, rs in rows.items():
+    for name, (per, rs) in rows.items():
+        k = kernels.HAND_KERNELS[name]
         per_call = lambda key: sum(r["sites"] * r[key] for r in rs)
         bound, by = _bound({"bytes_ms": per_call("bytes_ms"),
                             "ops_ms": per_call("ops_ms")})
         out.append({
-            "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1],
-            "launches": sum(launches[path][name] for path in launches),
-            "launches_by_path": {path: launches[path][name] for path in launches},
+            "name": name, "route": "cuda", "source": f"deformablelka_tpu_torch/csrc/{k.source}",
+            "replaces": k.replaces,
+            "launches": sum(c.get(name, 0) for c in launches.values()),
+            "launches_by_path": {path: c.get(name, 0) for path, c in launches.items()},
             "max_abs_err": max(r["err"] for r in rs),
             "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
             "bound_ms": bound, "bound_by": by,
             "library_ms": None if rs[0]["lib_ms"] is None else per_call("lib_ms"),
-            "per": per[name],
+            "per": per,
         })
         for key, row_key in (("device_ms", "device_ms"),
                              ("library_device_ms", "lib_device_ms")):
@@ -3011,23 +2977,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     phase_device()
-    rows = phase_kernels()
+    stages = "the 21 launches at the four stage shapes"
+    rows = {n: (f"one forward at batch 8: {stages}", rs) for n, rs in phase_kernels().items()}
     phase_small_reference()
     launches, wall_main, seg_main = phase_main_path()
-    rows["deform_conv3d_bwd"] = phase_backward_kernel()
-    rows["dw_chain3d_bwd"] = phase_chain_backward_kernel()
-    rows["conv3d_wgrad"] = [r for r in phase_conv3d_wgrad() if r["engaged"]]
+    rows["deform_conv3d_bwd"] = (f"one training step at batch 2: {stages}",
+                                 phase_backward_kernel())
+    rows["dw_chain3d_bwd"] = (f"one training step at batch 2: {stages}",
+                              phase_chain_backward_kernel())
+    rows["conv3d_wgrad"] = ("one training step of synapse3d.train and one of swin_unetr.train "
+                            "at batch 2: the 116 + 14 launches `convs.hand_wgrad_shape` engages",
+                            [r for r in phase_conv3d_wgrad() if r["engaged"]])
     phase_small_train_step()
     per_step, _ = phase_train_path()
-    train_launches = {n: sum(c[n] for c in per_step) for n in per_step[0]}
-    rows.update(phase_2d_kernels())
+    train_launches = _summed(per_step)
+    decoder = "the three decoder shapes"
+    rows_2d = phase_2d_kernels()
+    rows["deform_dw_conv2d"] = (f"one flagship forward at batch 24: the 12 launches at {decoder}",
+                                rows_2d["deform_dw_conv2d"])
+    rows["dw_chain2d"] = (f"one LKA Baseline forward at batch 24: the 6 launches at {decoder}",
+                          rows_2d["dw_chain2d"])
     # phase 19 beside the other 2D kernels: late in a long run torch.profiler
     # dropped most of its kernel records (PERF.md §7)
-    rows["deform_dw_conv2d_bwd"] = phase_2d_backward_kernel()
+    rows["deform_dw_conv2d_bwd"] = (
+        f"one flagship training step at batch 24: the 12 launches at {decoder}",
+        phase_2d_backward_kernel())
     launches_2d, _ = phase_2d_path()
     phase_2d_small_reference()
     latency_2d = phase_2d_latency()
-    rows["dwconv3d"] = phase_dwconv3d_kernel()
+    rows["dwconv3d"] = ("one forward at batch 8: the 9 launches at 8³×128 (5³ dil 3) and "
+                        "4³×256 (3³ dil 2)", phase_dwconv3d_kernel())
     launches_sa, _, _ = phase_main_path(13, SIZE_AWARE, LAUNCHES_PER_FORWARD[SIZE_AWARE])
     phase_small_configs()
     launches_cli, _ = phase_synapse_cli()
@@ -3050,8 +3029,7 @@ def main() -> int:
         "Synapse trainer, 2 epochs of 4 + 2 batches": launches_trainer,
         "Synapse -val, 2 cases": launches_val,
         "Pancreas trainer, 6 iterations": launches_pancreas_trainer,
-        "2D flagship Trainer2D, 3 steps": {n: sum(c[n] for c in per_step_2d)
-                                           for n in per_step_2d[0]},
+        "2D flagship Trainer2D, 3 steps": _summed(per_step_2d),
         "train_synapse2d, 2 epochs of 2 batches": launches_synapse2d,
         "LKA Baseline Trainer2D, 3 steps": launches_baseline2d,
         "train_skin, 2 epochs of 2 batches": launches_skin,

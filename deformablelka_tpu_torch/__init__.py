@@ -16,19 +16,10 @@ upstream torch names, so a state_dict converts with
 `deformablelka_tpu.convert.torch_loader`.
 
 The kernels are hand-written CUDA for `sm_90a` (`csrc/`), built with nvcc
-at first use (`ops/kernels.py`):
+at first use; `ops.kernels.HAND_KERNELS` lists them, one record each: the
+wrapper, the plain PyTorch version a CPU tensor takes, the source, the
+device functions' names and the operation count.
 
-- `ops.kernels.deform_conv3d` and `deform_conv3d_bwd`: the exact
-  trilinear 3³ deformable conv and its backward;
-- `ops.kernels.dw_chain3d` and `dw_chain3d_bwd`: the fused dw5³ →
-  dw7³-dil3 LKA chain and its backward;
-- `ops.kernels.deform_dw_conv2d` and `deform_dw_conv2d_bwd`: the exact
-  bilinear depthwise 2D deformable conv and its backward;
-- `ops.kernels.dw_chain2d`: the fused dw5² → dw7²-dil3 LKA chain;
-- `ops.kernels.dwconv3d`: the dilated depthwise K³ conv of the
-  size-aware gates.
-
-Each has a plain PyTorch version beside it, which a CPU tensor takes.
 Importing this package imports nothing but torch, numpy and scipy (h5py
 only where an h5 case is read, PIL where skin images are prepared).
 """

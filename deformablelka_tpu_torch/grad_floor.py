@@ -51,7 +51,7 @@ import torch
 from deformablelka_tpu_torch import train_path, trainer2d_path
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d
 from deformablelka_tpu_torch.nn.lka2d import DeformConv
-from deformablelka_tpu_torch.ops import deform2d, deform3d, dwconv3d, kernels, lka
+from deformablelka_tpu_torch.ops import deform2d, kernels
 from deformablelka_tpu_torch.ops.convs import to_ncdhw
 
 SCALE = 1 + 1e-7
@@ -74,16 +74,12 @@ def _deform_dw_recomputed(x, offset, w, dil: int = 1):
 
 
 def plain_versions():
-    """A context in which the kernel wrappers are their plain versions."""
+    """A context in which every kernel wrapper is its plain version (the
+    2D deform conv's recomputed, `_deform_dw_recomputed`)."""
     stack = contextlib.ExitStack()
-    stack.enter_context(mock.patch.object(kernels, "deform_conv3d",
-                                          deform3d.deform_conv3d))
-    stack.enter_context(mock.patch.object(kernels, "dw_chain3d", lka.dw_chain3d))
-    stack.enter_context(mock.patch.object(kernels, "deform_dw_conv2d",
-                                          _deform_dw_recomputed))
-    stack.enter_context(mock.patch.object(kernels, "dw_chain2d", lka.dw_chain2d))
-    stack.enter_context(mock.patch.object(kernels, "dwconv3d",
-                                          dwconv3d.depthwise_conv3d_dilated))
+    for k in kernels.HAND_KERNELS.values():
+        plain = _deform_dw_recomputed if k.name == "deform_dw_conv2d" else k.plain
+        stack.enter_context(mock.patch.object(kernels, k.name, plain))
     return stack
 
 

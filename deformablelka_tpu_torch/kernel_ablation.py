@@ -37,9 +37,6 @@ import numpy as np
 import torch
 
 from deformablelka_tpu_torch.ops import kernels
-from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d as deform2d_plain
-from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d_backward as deform2d_bwd_plain
-from deformablelka_tpu_torch.ops.deform3d import deform_conv3d_backward
 from deformablelka_tpu_torch.profiling import cold_ms
 
 STAGES_3D = ((32, 32), (16, 64), (8, 128), (4, 256))   # training path, B=2
@@ -275,8 +272,7 @@ class _Overlay:
 def _bind_variant(lib, base):
     """Give a variant's launcher the argument types `library()`
     gives the real one."""
-    for name in ("dlka_deform_conv3d_bwd", "dlka_deform_dw_conv2d",
-                 "dlka_deform_dw_conv2d_bwd"):
+    for name in (k.symbol for k in kernels.HAND_KERNELS.values()):
         if hasattr(lib, name):
             fn, ref = getattr(lib, name), getattr(base, name)
             fn.argtypes, fn.restype = ref.argtypes, ref.restype
@@ -325,14 +321,14 @@ def cases(kernel: str, reach: float = 2.5, integers: float = 0.25):
     offsets uniform in ±`reach`, the backward's with a share `integers` of
     them exact integers."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
+    plain = kernels.HAND_KERNELS[WRAPPERS[kernel]].plain
     if kernel == "deform3d_bwd":
         for S, C in STAGES_3D:
             x = torch.randn(2, S, S, S, C, device="cuda", generator=gen)
             off = (torch.rand(2, S, S, S, 81, device="cuda", generator=gen) * 2 - 1) * 2.5
             w = torch.randn(3, 3, 3, C, C, device="cuda", generator=gen) / (27 * C) ** 0.5
             g = torch.randn(2, S, S, S, C, device="cuda", generator=gen)
-            yield f"B=2 {S}^3 C={C}", (x, off, w, g), lambda a=(x, off, w, g): \
-                deform_conv3d_backward(*a)
+            yield f"B=2 {S}^3 C={C}", (x, off, w, g), lambda a=(x, off, w, g): plain(*a)
     else:
         for S, C in SITES_2D:
             x = torch.randn(24, S, S, C, device="cuda", generator=gen)
@@ -343,17 +339,15 @@ def cases(kernel: str, reach: float = 2.5, integers: float = 0.25):
                 w = torch.randn(k, k, 1, C, device="cuda", generator=gen) / k
                 label = f"B=24 {S}^2 C={C} k={k} dil={dil}"
                 if kernel == "deform2d_dw":
-                    yield label, (x, off, w, dil), lambda a=(x, off, w, dil): deform2d_plain(*a)
+                    yield label, (x, off, w, dil), lambda a=(x, off, w, dil): plain(*a)
                 else:
                     # phase 19's offsets: a quarter of them exact integers
                     off = torch.where(torch.rand(off.shape, device="cuda", generator=gen)
                                       < integers, off.round(), off)
-                    yield label, (x, off, w, g, dil), \
-                        lambda a=(x, off, w, g, dil): deform2d_bwd_plain(*a)
+                    yield label, (x, off, w, g, dil), lambda a=(x, off, w, g, dil): plain(*a)
 
 
-WRAPPERS = {"deform3d_bwd": "deform_conv3d_bwd", "deform2d_dw": "deform_dw_conv2d",
-            "deform2d_dw_bwd": "deform_dw_conv2d_bwd"}
+WRAPPERS = {Path(k.source).stem: name for name, k in kernels.HAND_KERNELS.items()}
 
 
 def _wrapper_of(root: Path, kernel: str):

@@ -8,9 +8,9 @@ back-to-back calls. This prints, per call on the host clock (the mean over
 20000 calls after 500 warm-up calls, in three rounds): the wrapper with
 grad mode on and under `no_grad`, one `F.conv3d(groups=C)` for the same
 function (TF32 off), and the wrapper's parts: its checks, the launch plan's
-lookup, the output's allocation, the launch arguments, and the launcher's
-call alone (the foreign-function call, the kernel launch and its error
-check). Needs one CUDA card.
+lookup, the output's allocation, the launch arguments, and the launch
+alone (`kernels._launch`: the foreign-function call, the kernel launch,
+its error check and its count). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ def parts(x, w, b) -> dict:
     B, D, H, W, C = x.shape
     plan = kernels.dwconv3d_plan(B, D, H, W, C, K, DIL)
     y = torch.empty_like(x)
-    lib = kernels.library()
     args = kernels._pointers()
 
     def checks():
@@ -62,7 +61,7 @@ def parts(x, w, b) -> dict:
             "plan lookup": lambda: kernels.dwconv3d_plan(B, D, H, W, C, K, DIL),
             "output allocation": lambda: torch.empty_like(x),
             "launch arguments": arguments,
-            "launcher call": lambda: lib.dlka_dwconv3d(args, plan.params, plan.vec)}
+            "launch": lambda: kernels._launch("dwconv3d", args, plan.params, plan.vec)}
 
 
 def main() -> None:

@@ -52,10 +52,7 @@ SIZE_AWARE = "TransformerBlock_Deform_LKA_Spatial_sequential"
 # gates take the fused chain at dims 32/64 (encoder stages 0-1, decoder4,
 # decoder3) and the dilated depthwise kernel at 128/256 (stages 2-3,
 # decoder5)
-LAUNCHES_PER_FORWARD = {SIZE_AWARE: {"deform_conv3d": BLOCKS, "dw_chain3d": 12,
-                                     "deform_conv3d_bwd": 0, "deform_dw_conv2d": 0,
-                                     "deform_dw_conv2d_bwd": 0, "dw_chain2d": 0,
-                                     "dwconv3d": 9, "dw_chain3d_bwd": 0}}
+LAUNCHES_PER_FORWARD = {SIZE_AWARE: {"deform_conv3d": BLOCKS, "dw_chain3d": 12, "dwconv3d": 9}}
 
 
 def drive_gates(model, seed: int) -> None:

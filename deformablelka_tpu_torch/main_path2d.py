@@ -65,11 +65,11 @@ CONFIGS = {"dlka": maxvit_dlka_former, "lka_baseline": maxvit_lka_former,
 # dw_chain2d launches per forward of the zoo's models with the LKA decoder:
 # `layer_lka_1` twice in each decoder layer but the first
 LKA_DECODER_CHAINS = {"dae_lka": 4, "mvit_lka": 6, "dat_lka": 6, "stvit_lka": 6}
-# kernel launches in one forward of each configuration
+# kernel launches in one forward of each configuration (none: no entry)
 LAUNCHES_PER_FORWARD = {
-    "dlka": {"deform_dw_conv2d": 12, "dw_chain2d": 0},
-    "lka_baseline": {"deform_dw_conv2d": 0, "dw_chain2d": 6},
-    **{name: {"deform_dw_conv2d": 0, "dw_chain2d": LKA_DECODER_CHAINS.get(name, 0)}
+    "dlka": {"deform_dw_conv2d": 12},
+    "lka_baseline": {"dw_chain2d": 6},
+    **{name: {"dw_chain2d": LKA_DECODER_CHAINS[name]} if name in LKA_DECODER_CHAINS else {}
        for name in ZOO},
 }
 # offset-net weights are N(0, (s / sqrt(fan_in))²) with s by kernel size:

@@ -33,6 +33,13 @@ pass, which adds the parts of a split K, is part of its one call, as are
 the backward's weight GEMM and its sum of parts, the 2D backward's sum
 of dw's per-tile parts, the chain backward's three passes and sum, and
 the weight gradient's sum of parts).
+
+`HAND_KERNELS` holds one `HandKernel` record per kernel, by wrapper
+name: its wrapper, its plain version, its source, the names of its
+device functions and its operation count. The binding, the profile's
+kernel classes, the operation counts, `grad_floor.plain_versions` and
+`chip_smoke.py` read the kernels from it; a new kernel is one more
+record.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import tempfile
 import threading
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -125,25 +133,24 @@ def library() -> ctypes.CDLL:
         i32 = ctypes.c_int
         # (pointers, plan, vec): no argtypes, so that ctypes passes the two
         # arrays as pointers and vec as an int without converting each
-        lib.dlka_deform_conv3d.restype = i32
-        lib.dlka_deform_conv3d_bwd.restype = i32
-        lib.dlka_deform_dw_conv2d.restype = i32
-        lib.dlka_deform_dw_conv2d_bwd.restype = i32
-        lib.dlka_dw_chain3d.restype = i32
-        lib.dlka_dw_chain3d_bwd.restype = i32
-        lib.dlka_dw_chain2d.restype = i32
-        lib.dlka_dwconv3d.restype = i32
-        lib.dlka_conv3d_wgrad.restype = i32
+        for k in HAND_KERNELS.values():
+            getattr(lib, k.symbol).restype = i32
         lib.dlka_error_string.argtypes = [i32]
         lib.dlka_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _check(err: int, name: str) -> None:
-    if err != 0:
+def _launch(name: str, args: ctypes.Array, params: ctypes.Array, vec: int) -> None:
+    """Launch `dlka_<name>` on the pointers, the plan's parameters and the
+    vector width; raise if the launch failed, else count it on the wrapper
+    `name` of `HAND_KERNELS`."""
+    k = HAND_KERNELS[name]
+    err = getattr(_lib or library(), k.symbol)(args, params, vec)
+    if err:
         msg = library().dlka_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+    k.wrapper.launches += 1
 
 
 def _require(t: torch.Tensor, name: str, shape: tuple, device) -> None:
@@ -227,11 +234,7 @@ def _deform_forward(x, offset, w, bias):
     a[3] = 0 if bias is None else bias.data_ptr()
     a[4], a[5] = y.data_ptr(), 0 if scratch is None else scratch.data_ptr()
     a[6] = _stream(x.device)
-    vec = plan.vec if xp % 16 == 0 and wp % 16 == 0 else 1
-    err = (_lib or library()).dlka_deform_conv3d(a, plan.params, vec)
-    if err:
-        _check(err, "deform_conv3d")
-    deform_conv3d.launches += 1
+    _launch("deform_conv3d", a, plan.params, plan.vec if xp % 16 == 0 and wp % 16 == 0 else 1)
     return y
 
 
@@ -266,9 +269,6 @@ def deform_conv3d(x, offset, w, bias=None):
     return _DeformConv3d.apply(x, offset, w, bias)
 
 
-deform_conv3d.launches = 0
-
-
 def deform_conv3d_bwd(x, offset, w, g):
     """(dx, d-offset, dw) of `deform_conv3d(x, offset, w)` at the cotangent
     g (B, D, H, W, Co): the exact trilinear gradient, right derivative at
@@ -300,15 +300,9 @@ def deform_conv3d_bwd(x, offset, w, g):
     a[4], a[5], a[6] = dx.data_ptr(), doff.data_ptr(), dw.data_ptr()
     a[7], a[8] = samp.data_ptr(), 0 if part is None else part.data_ptr()
     a[9] = _stream(x.device)
-    vec = plan.vec if xp % 16 == 0 and gp % 16 == 0 else 1
-    err = (_lib or library()).dlka_deform_conv3d_bwd(a, plan.params, vec)
-    if err:
-        _check(err, "deform_conv3d_bwd")
-    deform_conv3d_bwd.launches += 1
+    _launch("deform_conv3d_bwd", a, plan.params, plan.vec if xp % 16 == 0 and gp % 16 == 0 else 1)
     return dx, doff, dw
 
-
-deform_conv3d_bwd.launches = 0
 
 def _check_chain(x, w_dw, b_dw, w_dil, b_dil):
     B, D, H, W, C = x.shape
@@ -334,11 +328,7 @@ def _chain_forward(x, w_dw, b_dw, w_dil, b_dil):
     a[0] = xp = x.data_ptr()
     a[1], a[2], a[3], a[4] = w_dw.data_ptr(), b_dw.data_ptr(), w_dil.data_ptr(), b_dil.data_ptr()
     a[5], a[6] = y.data_ptr(), _stream(dev)
-    err = (_lib or library()).dlka_dw_chain3d(a, plan.params,
-                                              plan.vec if xp % 16 == 0 else 1)
-    if err:
-        _check(err, "dw_chain3d")
-    dw_chain3d.launches += 1
+    _launch("dw_chain3d", a, plan.params, plan.vec if xp % 16 == 0 else 1)
     return y
 
 
@@ -394,9 +384,6 @@ def dw_chain3d(x, w_dw, b_dw, w_dil, b_dil):
     return _Chain3d.apply(x, w_dw, b_dw, w_dil, b_dil)
 
 
-dw_chain3d.launches = 0
-
-
 def dw_chain3d_bwd(x, w_dw, b_dw, w_dil, b_dil, g):
     """(dx, dw_dw, db_dw, dw_dil, db_dil) of `dw_chain3d(x, w_dw, b_dw,
     w_dil, b_dil)` at the cotangent g (B, D, H, W, C). Kernel:
@@ -424,15 +411,8 @@ def dw_chain3d_bwd(x, w_dw, b_dw, w_dil, b_dil, g):
     p[10], p[11] = dw_dw.data_ptr(), db_dw.data_ptr()
     p[12], p[13] = dw_dil.data_ptr(), db_dil.data_ptr()
     p[14] = _stream(x.device)
-    vec = plan.dw5.vec if xp % 16 == 0 and gp % 16 == 0 else 1
-    err = (_lib or library()).dlka_dw_chain3d_bwd(p, plan.params, vec)
-    if err:
-        _check(err, "dw_chain3d_bwd")
-    dw_chain3d_bwd.launches += 1
+    _launch("dw_chain3d_bwd", p, plan.params, plan.dw5.vec if xp % 16 == 0 and gp % 16 == 0 else 1)
     return dx, dw_dw, db_dw, dw_dil, db_dil
-
-
-dw_chain3d_bwd.launches = 0
 
 
 def _check_deform_dw(x, offset, w, dil):
@@ -459,11 +439,7 @@ def _deform_dw_forward(x, offset, w, dil):
     a[1] = offset.data_ptr()
     a[2] = wp = w.data_ptr()
     a[3], a[4] = y.data_ptr(), _stream(x.device)
-    err = (_lib or library()).dlka_deform_dw_conv2d(
-        a, plan.params, plan.vec if xp % 16 == 0 and wp % 16 == 0 else 1)
-    if err:
-        _check(err, "deform_dw_conv2d")
-    deform_dw_conv2d.launches += 1
+    _launch("deform_dw_conv2d", a, plan.params, plan.vec if xp % 16 == 0 and wp % 16 == 0 else 1)
     return y
 
 
@@ -497,9 +473,6 @@ def deform_dw_conv2d(x, offset, w, dil: int = 1):
     return _DeformDw2d.apply(x, offset, w, dil)
 
 
-deform_dw_conv2d.launches = 0
-
-
 def deform_dw_conv2d_bwd(x, offset, w, g, dil: int = 1):
     """(dx, d-offset, dw) of `deform_dw_conv2d(x, offset, w, dil)` at the
     cotangent g (B, H, W, C): the exact bilinear gradient, right derivative
@@ -528,15 +501,9 @@ def deform_dw_conv2d_bwd(x, offset, w, g, dil: int = 1):
     a[3] = gp = g.data_ptr()
     a[4], a[5], a[6] = dx.data_ptr(), doff.data_ptr(), dw.data_ptr()
     a[7], a[8] = part.data_ptr(), _stream(x.device)
-    vec = plan.vec if xp % 16 == 0 and gp % 16 == 0 else 1
-    err = (_lib or library()).dlka_deform_dw_conv2d_bwd(a, plan.params, vec)
-    if err:
-        _check(err, "deform_dw_conv2d_bwd")
-    deform_dw_conv2d_bwd.launches += 1
+    _launch("deform_dw_conv2d_bwd", a, plan.params,
+            plan.vec if xp % 16 == 0 and gp % 16 == 0 else 1)
     return dx, doff, dw
-
-
-deform_dw_conv2d_bwd.launches = 0
 
 
 @dataclass(frozen=True)
@@ -984,11 +951,7 @@ def _chain2d_forward(x, w_dw, b_dw, w_dil, b_dil):
     a[0] = xp = x.data_ptr()
     a[1], a[2], a[3], a[4] = w_dw.data_ptr(), b_dw.data_ptr(), w_dil.data_ptr(), b_dil.data_ptr()
     a[5], a[6] = y.data_ptr(), _stream(dev)
-    err = (_lib or library()).dlka_dw_chain2d(a, plan.params,
-                                              plan.vec if xp % 16 == 0 else 1)
-    if err:
-        _check(err, "dw_chain2d")
-    dw_chain2d.launches += 1
+    _launch("dw_chain2d", a, plan.params, plan.vec if xp % 16 == 0 else 1)
     return y
 
 
@@ -1002,8 +965,6 @@ def dw_chain2d(x, w_dw, b_dw, w_dil, b_dil):
         return dw_chain2d_plain(x, w_dw, b_dw, w_dil, b_dil)
     return _dispatch(_chain2d_forward, dw_chain2d_plain, x, w_dw, b_dw, w_dil, b_dil)
 
-
-dw_chain2d.launches = 0
 
 def dwconv3d_smem_bytes(D: int, H: int, W: int, K: int, dil: int, ct: int,
                         tile: tuple) -> int:
@@ -1076,11 +1037,7 @@ def _dwconv3d_forward(x, w, bias, dil):
     a[0] = xp = x.data_ptr()
     a[1], a[2] = w.data_ptr(), 0 if bias is None else bias.data_ptr()
     a[3], a[4] = y.data_ptr(), _stream(dev)
-    err = (_lib or library()).dlka_dwconv3d(a, plan.params,
-                                            plan.vec if xp % 16 == 0 else 1)
-    if err:
-        _check(err, "dwconv3d")
-    dwconv3d.launches += 1
+    _launch("dwconv3d", a, plan.params, plan.vec if xp % 16 == 0 else 1)
     return y
 
 
@@ -1102,8 +1059,6 @@ def dwconv3d(x, w, bias, dil: int):
     return _PlainVjp.apply(lambda *t: _dwconv3d_forward(*t, dil),
                            lambda *t: dwconv3d_plain(*t, dil), x, w, bias)
 
-
-dwconv3d.launches = 0
 
 _WGRAD_THREADS = 256   # csrc/conv3d_wgrad.cu: threads a block, at most
 # registers a thread, for the blocks an SM holds (nvcc -Xptxas -v, sm_90a, with
@@ -1219,18 +1174,95 @@ def conv3d_wgrad(x, g, k: int):
     a[1] = gp = g.data_ptr()
     a[2], a[3] = 0 if part is None else part.data_ptr(), dw.data_ptr()
     a[4] = _stream(dev)
-    vec = plan.vec & ((xp % 16 == 0) | (gp % 16 == 0) << 1)
-    err = (_lib or library()).dlka_conv3d_wgrad(a, plan.params, vec)
-    if err:
-        _check(err, "conv3d_wgrad")
-    conv3d_wgrad.launches += 1
+    _launch("conv3d_wgrad", a, plan.params, plan.vec & ((xp % 16 == 0) | (gp % 16 == 0) << 1))
     return dw
 
 
-conv3d_wgrad.launches = 0
+def _taps_inside(extent: int, K: int, dil: int) -> int:
+    """Σ over the positions of one axis of the K taps (dilation `dil`,
+    centred) that fall inside it."""
+    return sum(0 <= z + (k - K // 2) * dil < extent for z in range(extent) for k in range(K))
 
-WRAPPERS = (deform_conv3d, dw_chain3d, deform_conv3d_bwd, deform_dw_conv2d,
-            deform_dw_conv2d_bwd, dw_chain2d, dwconv3d, dw_chain3d_bwd, conv3d_wgrad)
+
+def _deform3d_ops(args, mix: int, blend: int, extra: int = 0) -> int:
+    """Per voxel and tap: `mix` a channel pair, `blend` an input channel,
+    and `extra`."""
+    B, D, H, W, Ci = args[0].shape
+    return B * D * H * W * 27 * (mix * Ci * args[2].shape[-1] + blend * Ci + extra)
+
+
+def _dwconv3d_ops(args) -> int:
+    B, D, H, W, C = args[0].shape
+    K, dil = args[1].shape[0], args[3]
+    taps = _taps_inside(D, K, dil) * _taps_inside(H, K, dil) * _taps_inside(W, K, dil)
+    return B * C * (2 * taps + D * H * W)
+
+
+@dataclass(frozen=True)
+class HandKernel:
+    """A hand kernel. `wrapper`: its public function (which carries its
+    `.launches`); `plain`: the function the wrapper runs on a CPU tensor;
+    `source`: its file under csrc/, which exports `extern "C" int
+    dlka_<wrapper name>(args, plan, vec)` (`symbol`); `replaces`: what the
+    JAX package runs in its place; `device_names`: fragments of its device
+    functions' names as the profiler prints them, each found in no other
+    kernel's; `ops`: the operations of one call on the wrapper's arguments,
+    by the formula of its bound on the card (chip_smoke.py, PERF.md §6)."""
+    wrapper: Callable
+    plain: Callable
+    source: str
+    replaces: str
+    device_names: tuple
+    ops: Callable
+    symbol: str = field(init=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "symbol", "dlka_" + self.wrapper.__name__)
+
+    @property
+    def name(self) -> str:
+        return self.wrapper.__name__
+
+
+_PALLAS = "deformablelka_tpu/ops/pallas/"
+HAND_KERNELS = {k.name: k for k in (
+    # ops: per voxel and tap: the 8-corner blend, the mix
+    HandKernel(deform_conv3d, deform_conv3d_plain, "deform3d.cu",
+               _PALLAS + "deform3d_kernel.py:1008", ("deform_conv3d_kernel",),
+               lambda a: _deform3d_ops(a, 2, 16)),
+    # ops: dw5³ and dw7³, a multiply-add per tap
+    HandKernel(dw_chain3d, dw_chain3d_plain, "dw_chain3d.cu",
+               _PALLAS + "lka_fused_kernel.py:240", ("dw_chain3d_kernel",),
+               lambda a: a[0].numel() * 2 * (125 + 343)),
+    HandKernel(deform_conv3d_bwd, deform_conv3d_backward, "deform3d_bwd.cu",
+               _PALLAS + "deform3d_bwd_kernel.py:182", ("deform_bwd",),
+               lambda a: _deform3d_ops(a, 4, 48, 48)),
+    # ops: per tap: the 4-corner blend (7) and the weight (2)
+    HandKernel(deform_dw_conv2d, deform_dw_conv2d_plain, "deform2d_dw.cu",
+               _PALLAS + "deform2d_kernel.py:182", ("deform_dw_conv2d_kernel",),
+               lambda a: a[0].numel() * a[2].shape[0] * a[2].shape[1] * 9),
+    HandKernel(deform_dw_conv2d_bwd, deform_dw_conv2d_backward, "deform2d_dw_bwd.cu",
+               _PALLAS + "deform2d_kernel.py:194 (its VJP; deformablelka_tpu/ops/"
+               "deform2d.py:336)", ("deform_dw_bwd",),
+               lambda a: (a[0].numel() // a[0].shape[-1] * a[2].shape[0] * a[2].shape[1]
+                          * (32 * a[0].shape[-1] + 24))),
+    HandKernel(dw_chain2d, dw_chain2d_plain, "dw_chain2d.cu",
+               _PALLAS + "lka_fused_kernel.py:261", ("dw_chain2d_kernel",),
+               lambda a: a[0].numel() * 2 * (25 + 49)),
+    # ops: a multiply-add per tap inside the volume, the bias
+    HandKernel(dwconv3d, dwconv3d_plain, "dwconv3d.cu",
+               _PALLAS + "dwconv3d_kernel.py:172", ("dwconv3d_kernel",), _dwconv3d_ops),
+    # ops: the data and the weight gradients, a forward each
+    HandKernel(dw_chain3d_bwd, dw_chain3d_backward, "dw_chain3d_bwd.cu",
+               "none (the JAX package differentiates the plain chain, "
+               + _PALLAS + "lka_fused_kernel.py:252)", ("dw_chain3d_bwd",),
+               lambda a: a[0].numel() * 4 * (125 + 343)),
+    # ops: a multiply-add per voxel, tap and channel pair
+    HandKernel(conv3d_wgrad, conv3d_wgrad_plain, "conv3d_wgrad.cu",
+               "none (the JAX package leaves the dense convs' gradient to XLA)",
+               ("conv3d_wgrad",), lambda a: 2 * a[0].numel() * a[1].shape[-1] * a[2] ** 3),
+)}
+WRAPPERS = tuple(k.wrapper for k in HAND_KERNELS.values())
 
 
 def reset_launches() -> None:
@@ -1238,6 +1270,10 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
+reset_launches()
+
+
 def launch_counts() -> dict:
-    """{wrapper name: its launches since the last `reset_launches`}."""
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    """{wrapper name: its launches since the last `reset_launches`}, for
+    the wrappers that launched."""
+    return {fn.__name__: fn.launches for fn in WRAPPERS if fn.launches}

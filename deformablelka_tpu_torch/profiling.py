@@ -39,6 +39,8 @@ from collections import defaultdict, deque
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+from deformablelka_tpu_torch.ops import kernels
+
 SPAN_LIMIT = 1 << 16          # records kept; the oldest go first
 
 _OFF = contextlib.nullcontext()
@@ -66,8 +68,6 @@ class SpanRecord:
         global _units
         self.parent = _open[-1] if _open else None
         if self.unit_span:
-            from deformablelka_tpu_torch.ops import kernels
-
             self.unit, _units = _units, _units + 1
             self._before = kernels.launch_counts()
             self._counted = dict(_counts)
@@ -88,10 +88,9 @@ class SpanRecord:
         if self.end is not None:
             self.end.record()
         if self.unit_span:
-            from deformablelka_tpu_torch.ops import kernels
-
-            self.launches = {k: v - self._before[k] for k, v in kernels.launch_counts().items()
-                             if v != self._before[k]}
+            self.launches = {k: v - self._before.get(k, 0)
+                             for k, v in kernels.launch_counts().items()
+                             if v != self._before.get(k, 0)}
             self.counts = {k: v - self._counted.get(k, 0) for k, v in _counts.items()
                            if v != self._counted.get(k, 0)}
         _open.pop()
@@ -141,24 +140,9 @@ def timed(fn, times: list):
 
 
 def kernel_class(name: str) -> str:
-    if "deform_dw_bwd" in name:
-        return "deform_dw_conv2d_bwd (hand kernel)"
-    if "deform_bwd" in name:
-        return "deform_conv3d_bwd (hand kernel)"
-    if "deform_conv3d_kernel" in name:
-        return "deform_conv3d (hand kernel)"
-    if "dw_chain3d_kernel" in name:
-        return "dw_chain3d (hand kernel)"
-    if "dw_chain3d_bwd" in name:
-        return "dw_chain3d_bwd (hand kernel)"
-    if "deform_dw_conv2d_kernel" in name:
-        return "deform_dw_conv2d (hand kernel)"
-    if "dw_chain2d_kernel" in name:
-        return "dw_chain2d (hand kernel)"
-    if "dwconv3d_kernel" in name:
-        return "dwconv3d (hand kernel)"
-    if "conv3d_wgrad" in name:
-        return "conv3d_wgrad (hand kernel)"
+    for k in kernels.HAND_KERNELS.values():
+        if any(part in name for part in k.device_names):
+            return f"{k.name} (hand kernel)"
     low = name.lower()
     if any(s in low for s in ("conv", "cudnn", "xmma", "implicit", "gemm",
                               "sm90", "cutlass", "wgrad", "dgrad")):

@@ -48,9 +48,7 @@ LR = poly_lr(0, 1000, 1e-2)
 # kernel launches per training step with remat (the 2D kernels and the
 # dilated depthwise conv, which the published block does not reach: none)
 LAUNCHES_PER_STEP = {"deform_conv3d": 2 * BLOCKS, "dw_chain3d": 2 * BLOCKS,
-                     "deform_conv3d_bwd": BLOCKS, "deform_dw_conv2d": 0,
-                     "deform_dw_conv2d_bwd": 0, "dw_chain2d": 0, "dwconv3d": 0,
-                     "dw_chain3d_bwd": BLOCKS, "conv3d_wgrad": 116}
+                     "deform_conv3d_bwd": BLOCKS, "dw_chain3d_bwd": BLOCKS, "conv3d_wgrad": 116}
 # conv3d_wgrad: of the step's 155 dense stride-1 convs (7 a block, encoder1's
 # 3, decoder2's 2, the three outputs), all but the 39 at 8³ and 4³, where
 # cuDNN's weight gradient is the faster (`convs.hand_wgrad_shape`)

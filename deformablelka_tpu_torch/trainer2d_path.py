@@ -59,17 +59,12 @@ VOLUMES = 2
 SKIN_SPLITS = (32, 8, 8)  # train, val, test images
 
 
-def _launches(**counts) -> dict:
-    return {fn.__name__: counts.get(fn.__name__, 0) for fn in kernels.WRAPPERS}
-
-
 # kernel launches per training step: the flagship's 12 deform convs, each
 # once forward and once backward; the chains of the LKA Baseline (6) and of
 # the zoo's LKA decoders forward (their backward is the plain chain's VJP)
-LAUNCHES_PER_STEP = {"dlka": _launches(deform_dw_conv2d=12, deform_dw_conv2d_bwd=12),
-                     "lka_baseline": _launches(dw_chain2d=6),
-                     **{name: _launches(dw_chain2d=main_path2d.LKA_DECODER_CHAINS.get(name, 0))
-                        for name in main_path2d.ZOO}}
+LAUNCHES_PER_STEP = {"dlka": {"deform_dw_conv2d": 12, "deform_dw_conv2d_bwd": 12},
+                     **{name: main_path2d.LAUNCHES_PER_FORWARD[name]
+                        for name in ("lka_baseline", *main_path2d.ZOO)}}
 
 
 def _organs(rng, shape, labels: int):

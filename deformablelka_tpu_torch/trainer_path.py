@@ -70,21 +70,16 @@ PANCREAS_ITERATIONS = 6
 PANCREAS_LABELED = 1
 
 
-def _launches(deform, chain, bwd, wgrad) -> dict:
-    """The published block's launches: `bwd` of each backward kernel,
-    `wgrad` dense weight gradients (`convs.hand_wgrad_shape`)."""
-    return {"deform_conv3d": deform, "dw_chain3d": chain, "deform_conv3d_bwd": bwd,
-            "deform_dw_conv2d": 0, "deform_dw_conv2d_bwd": 0, "dw_chain2d": 0,
-            "dwconv3d": 0, "dw_chain3d_bwd": bwd, "conv3d_wgrad": wgrad}
-
-
 # kernel launches of the published block's paths: a Synapse step with remat
 # (each block's forward again in the backward pass), a validation batch (one
 # forward), a Pancreas iteration without remat (at 96³, B=2: 114 of its 153
 # dense stride-1 convs, all but the 21 at 6³ and the 18 of 3³ at 12³)
-LAUNCHES_PER_STEP = _launches(2 * BLOCKS, 2 * BLOCKS, BLOCKS, 116)
-LAUNCHES_PER_VAL_BATCH = _launches(BLOCKS, BLOCKS, 0, 0)
-PANCREAS_LAUNCHES_PER_ITERATION = _launches(BLOCKS, BLOCKS, BLOCKS, 114)
+LAUNCHES_PER_STEP = {"deform_conv3d": 2 * BLOCKS, "dw_chain3d": 2 * BLOCKS,
+                     "deform_conv3d_bwd": BLOCKS, "dw_chain3d_bwd": BLOCKS, "conv3d_wgrad": 116}
+LAUNCHES_PER_VAL_BATCH = {"deform_conv3d": BLOCKS, "dw_chain3d": BLOCKS}
+PANCREAS_LAUNCHES_PER_ITERATION = {"deform_conv3d": BLOCKS, "dw_chain3d": BLOCKS,
+                                   "deform_conv3d_bwd": BLOCKS, "dw_chain3d_bwd": BLOCKS,
+                                   "conv3d_wgrad": 114}
 
 
 def synapse_case(seed: int = 0, shape=CASE_SHAPE, num_classes: int = NUM_CLASSES):

@@ -10,14 +10,14 @@ print-out, its CUDA-event latency harness and its unused profiler):
   `FlopCounterMode` counts the matrix products and convolutions that
   torch dispatches (two per multiply-add, as XLA counts them); it does not
   see the hand kernels, which run through ctypes. So each kernel wrapper
-  of `ops.kernels` is wrapped for the call: its operations are added by the
-  formulas of the card's bounds in `chip_smoke.py` (PERF.md §6), and what
+  of `ops.kernels` is wrapped for the call: its operations are added by its
+  record's formula (`kernels.HAND_KERNELS`, the card's bounds), and what
   torch's counter saw inside a wrapper (the plain version's convs, where a
   CPU tensor takes it) is taken out again, so that a D-LKA model is
   counted the same on the card and on the CPU. The backward of a kernel is
-  counted where its wrapper runs (`deform_conv3d_bwd`,
-  `deform_dw_conv2d_bwd`, `dw_chain3d_bwd` on the card); on the CPU autograd differentiates
-  the plain version, and torch's counter counts what it sees of that.
+  counted where its backward wrapper runs, on the card; on the CPU autograd
+  differentiates the plain version, and torch's counter counts what it
+  sees of that.
   torch has no counterpart of XLA's "bytes accessed" (the bytes of every
   operation's operands): in its place the report gives `gbytes_floor`, the
   bytes the call cannot avoid moving, its tensor arguments and the
@@ -48,46 +48,10 @@ def count_params(module: torch.nn.Module) -> int:
     return int(sum(p.numel() for p in module.parameters()))
 
 
-def _taps_inside(extent: int, K: int, dil: int) -> int:
-    """Σ over the positions of one axis of the K taps (dilation `dil`,
-    centred) that fall inside it."""
-    return sum(0 <= z + (k - K // 2) * dil < extent for z in range(extent) for k in range(K))
-
-
 def kernel_ops(name: str, args) -> int:
-    """The operations of one call of hand kernel `name` on `args`, by the
-    formulas of its bound on the card (chip_smoke.py, PERF.md §6)."""
-    x = args[0]
-    if name == "deform_conv3d":       # per voxel and tap: the 8-corner blend, the mix
-        B, D, H, W, Ci = x.shape
-        Co = args[2].shape[-1]
-        return B * D * H * W * 27 * (2 * Ci * Co + 16 * Ci)
-    if name == "deform_conv3d_bwd":
-        B, D, H, W, Ci = x.shape
-        Co = args[2].shape[-1]
-        return B * D * H * W * 27 * (4 * Ci * Co + 48 * Ci + 48)
-    if name == "dw_chain3d":          # dw5³ and dw7³, a multiply-add per tap
-        return x.numel() * 2 * (125 + 343)
-    if name == "dw_chain3d_bwd":      # the data and the weight gradients, a forward each
-        return x.numel() * 4 * (125 + 343)
-    if name == "dw_chain2d":
-        return x.numel() * 2 * (25 + 49)
-    if name == "deform_dw_conv2d":    # per tap: the 4-corner blend (7) and the weight (2)
-        K = args[2].shape[0] * args[2].shape[1]
-        return x.numel() * K * 9
-    if name == "deform_dw_conv2d_bwd":
-        B, H, W, C = x.shape
-        K = args[2].shape[0] * args[2].shape[1]
-        return B * H * W * K * (32 * C + 24)
-    if name == "dwconv3d":            # a multiply-add per tap inside the volume, the bias
-        B, D, H, W, C = x.shape
-        K, dil = args[1].shape[0], args[3]
-        taps = _taps_inside(D, K, dil) * _taps_inside(H, K, dil) * _taps_inside(W, K, dil)
-        return B * C * (2 * taps + D * H * W)
-    if name == "conv3d_wgrad":        # a multiply-add per voxel, tap and channel pair
-        k = args[2]
-        return 2 * x.numel() * args[1].shape[-1] * k ** 3
-    raise KeyError(name)
+    """The operations of one call of hand kernel `name` on `args`
+    (`kernels.HandKernel.ops`)."""
+    return kernels.HAND_KERNELS[name].ops(args)
 
 
 @contextlib.contextmanager

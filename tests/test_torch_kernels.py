@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from deformablelka_tpu_torch import main_path, main_path2d, train_path
+from deformablelka_tpu_torch.grad_floor import plain_versions
 from deformablelka_tpu_torch.models.dlka_former import dlka_former_synapse
 from deformablelka_tpu_torch.nn.blocks3d import DeformConvPack3d, LKA3dDeform
 from deformablelka_tpu_torch.nn.layers import init_parameters
@@ -331,6 +332,19 @@ def test_training_step_launches_match_the_table(cuda):
     assert train_path.LAUNCHES_PER_STEP["dw_chain3d_bwd"] == main_path.BLOCKS
 
 
+def test_training_step_in_plain_versions_launches_no_hand_kernel(cuda):
+    """Inside `grad_floor.plain_versions()` a training step of the
+    published model launches none of the table's kernels, the dense convs'
+    weight gradient (kernel 7, which `ops.convs` calls) included, so that
+    the whole-step checks against the plain versions hold every kernel."""
+    path = train_path.build(seed=0, img_size=(16, 32, 32))
+    kernels.reset_launches()
+    with plain_versions():
+        train_path.step(path)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == {}
+
+
 def test_kernel_outputs_carry_a_grad_fn(cuda):
     x = torch.randn(1, 4, 5, 6, 8, device="cuda", requires_grad=True)
     off = torch.zeros(1, 4, 5, 6, 81, device="cuda")
@@ -613,8 +627,7 @@ def test_2d_models_on_the_card_match_the_cpu_and_count_launches(cuda, config):
     with torch.no_grad():
         got = gpu(x.cuda()).cpu()
         ref = cpu(x)
-    counts = {n: getattr(kernels, n).launches for n in ("deform_dw_conv2d", "dw_chain2d")}
-    assert counts == main_path2d.LAUNCHES_PER_FORWARD[config]
+    assert kernels.launch_counts() == main_path2d.LAUNCHES_PER_FORWARD[config]
     _close(got, ref)
 
 

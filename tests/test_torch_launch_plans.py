@@ -19,21 +19,27 @@ backward at the Synapse and Pancreas stages, batch 2; 8³×128 K5 d3 and
 standing in for the kernel, as on the card: exact equality (atol 0), since
 both sides run the same plain code; so does the 2D deform conv's autograd
 Function, with the plain forward and backward standing in for its two
-kernels.
+kernels. The table of the kernels (`kernels.HAND_KERNELS`): each
+wrapper's launcher in its source, its device functions' names, their
+profile classes and operation counts as they were before the table, and
+`grad_floor.plain_versions` replacing every wrapper.
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from deformablelka_tpu_torch import main_path2d, trainer2d_path
+from deformablelka_tpu_torch import main_path2d, profiling, trainer2d_path
+from deformablelka_tpu_torch.grad_floor import plain_versions
 from deformablelka_tpu_torch.models.registry import build_model_2d
 from deformablelka_tpu_torch.ops import kernels
 from deformablelka_tpu_torch.ops.deform2d import deform_dw_conv2d, deform_dw_conv2d_backward
 from deformablelka_tpu_torch.ops.dwconv3d import depthwise_conv3d_dilated
 from deformablelka_tpu_torch.ops.lka import dw_chain2d
+from deformablelka_tpu_torch.utils.profiling import kernel_ops
 
 torch.set_num_threads(1)
 
@@ -402,10 +408,9 @@ def test_zoo_chain_sites_match_the_launch_tables(name, monkeypatch):
     with torch.no_grad():
         y = model(torch.zeros(24, 224, 224, 1, device="meta"))
     assert tuple(y.shape) == (24, 224, 224, 9)
-    want = main_path2d.LAUNCHES_PER_FORWARD[name]
-    assert len(calls) == want["dw_chain2d"] and want["deform_dw_conv2d"] == 0
-    step = trainer2d_path.LAUNCHES_PER_STEP[name]
-    assert step == {n: len(calls) if n == "dw_chain2d" else 0 for n in step}
+    want = {"dw_chain2d": len(calls)} if calls else {}
+    assert main_path2d.LAUNCHES_PER_FORWARD[name] == want
+    assert trainer2d_path.LAUNCHES_PER_STEP[name] == want
     assert set(calls) <= set(CHAIN_SITES)
     assert len(calls) == {"dae_lka": 4, "mvit_lka": 6, "dat_lka": 6,
                           "stvit_lka": 6}.get(name, 0)
@@ -535,3 +540,109 @@ def test_3xtf32_split_meets_the_kernel_tolerance_where_one_tf32_product_does_not
     one = _mma_sum([(a_hi, b_hi)], K)
     assert np.abs(three - exact).max() <= tol / 10
     assert np.abs(one - exact).max() > tol
+
+
+# --- the table of hand kernels (`kernels.HAND_KERNELS`) ---------------------
+
+CSRC = kernels._PKG / "csrc"
+WRAPPER_IDS = [fn.__name__ for fn in kernels.WRAPPERS]
+
+
+@pytest.mark.parametrize("fn", kernels.WRAPPERS, ids=WRAPPER_IDS)
+def test_each_wrapper_has_one_launcher_in_its_source(fn):
+    """`dlka_<wrapper name>(args, plan, vec)` is exported by exactly one
+    csrc/*.cu, the record's `source`."""
+    launcher = re.compile(r'extern "C" int ' + kernels.HAND_KERNELS[fn.__name__].symbol
+                          + r"\(const unsigned long long\* args,\s*const int\* plan,\s*int vec\)")
+    assert [p.name for p in sorted(CSRC.glob("*.cu")) if launcher.search(p.read_text())] \
+        == [kernels.HAND_KERNELS[fn.__name__].source]
+
+
+@pytest.mark.parametrize("fn", kernels.WRAPPERS, ids=WRAPPER_IDS)
+def test_device_name_fragments_match_their_own_kernels_alone(fn):
+    """Every device function of the kernel's source holds one of its
+    fragments, and no device function of another source holds one."""
+    k = kernels.HAND_KERNELS[fn.__name__]
+    device_fn = re.compile(r"__global__\s+void\s+"
+                           r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(")
+    device_fns = {p.name: device_fn.findall(p.read_text()) for p in CSRC.glob("*.cu")}
+    assert device_fns[k.source]
+    for source, names in device_fns.items():
+        for name in names:
+            assert any(part in name for part in k.device_names) == (source == k.source), name
+
+
+# device functions as the profiler names them (from the benchmark's traced
+# breakdowns; the 2D kernels' and dwconv3d's, which the cells do not run,
+# in the same form) and the class `profiling.kernel_class` gave each
+# before the classes were read from the table
+HAND, DENSE, REST = "(hand kernel)", "cuDNN/cuBLAS conv and GEMM", \
+    "elementwise, norms, softmax, copies"
+PROFILED = {
+    "void__anonymous_namespace_::conv3d_wgrad_part_3__4__4__4__float_": f"conv3d_wgrad {HAND}",
+    "void__anonymous_namespace_::dw_chain3d_bwd_taps_7__3__4__true__t": f"dw_chain3d_bwd {HAND}",
+    "void__anonymous_namespace_::deform_bwd_data_kernel_4__float_cons":
+        f"deform_conv3d_bwd {HAND}",
+    "void__anonymous_namespace_::deform_conv3d_kernel_32__4__float_co": f"deform_conv3d {HAND}",
+    "void__anonymous_namespace_::deform_conv3d_kernel_64__4__float_co": f"deform_conv3d {HAND}",
+    "void__anonymous_namespace_::dw_chain3d_kernel_4__float_const___f": f"dw_chain3d {HAND}",
+    "void__anonymous_namespace_::deform_dw_bwd_data_kernel": f"deform_dw_conv2d_bwd {HAND}",
+    "void__anonymous_namespace_::deform_dw_conv2d_kernel_4": f"deform_dw_conv2d {HAND}",
+    "void__anonymous_namespace_::dw_chain2d_kernel_4": f"dw_chain2d {HAND}",
+    "void__anonymous_namespace_::dwconv3d_kernel_4": f"dwconv3d {HAND}",
+    "void_cudnn::cnn::wgrad2d_grouped_direct_kernel_true__true__int__": DENSE,
+    "sm80_xmma_dgrad_implicit_gemm_f32f32_f32f32_f32_nchwkcrs_nchw_ti": DENSE,
+    "sm80_xmma_fprop_implicit_gemm_f32f32_f32f32_f32_nchwkcrs_nchw_ti": DENSE,
+    "void_convolveNd_dgrad_float_engine_float__3__512__6__5__3__3__3_": DENSE,
+    "void_cudnn::engines_precompiled::nchwToNhwcKernel_float__float__": DENSE,
+    "void_at::native::elementwise_kernel_128__2__at::native::gpu_kern": REST,
+    "void_at::native::reduce_kernel_128__4__at::native::ReduceOp_floa": REST,
+}
+
+
+@pytest.mark.parametrize("name", list(PROFILED))
+def test_kernel_class_of_profiled_names(name):
+    assert profiling.kernel_class(name) == PROFILED[name]
+
+
+def _meta(*shape):
+    return torch.empty(*shape, device="meta")
+
+
+# one call's arguments per kernel and the operations `utils/profiling.kernel_ops`
+# counted for it before the counts were read from the table
+OPS = {
+    "deform_conv3d": ((_meta(2, 4, 6, 8, 16), _meta(2, 4, 6, 8, 81), _meta(3, 3, 3, 16, 24)),
+                      10616832),
+    "dw_chain3d": ((_meta(2, 4, 6, 8, 16), _meta(5, 5, 5, 1, 16), _meta(16),
+                    _meta(7, 7, 7, 1, 16), _meta(16)), 5750784),
+    "deform_conv3d_bwd": ((_meta(2, 4, 6, 8, 16), _meta(2, 4, 6, 8, 81),
+                           _meta(3, 3, 3, 16, 24), _meta(2, 4, 6, 8, 24)), 24385536),
+    "deform_dw_conv2d": ((_meta(2, 14, 14, 32), _meta(2, 14, 14, 98), _meta(7, 7, 1, 32), 3),
+                         5531904),
+    "deform_dw_conv2d_bwd": ((_meta(2, 14, 14, 32), _meta(2, 14, 14, 50), _meta(5, 5, 1, 32),
+                              _meta(2, 14, 14, 32), 1), 10270400),
+    "dw_chain2d": ((_meta(2, 14, 14, 32), _meta(5, 5, 1, 32), _meta(32), _meta(7, 7, 1, 32),
+                    _meta(32)), 1856512),
+    "dwconv3d": ((_meta(2, 4, 6, 8, 16), _meta(5, 5, 5, 1, 16), _meta(16), 3), 107520),
+    "dw_chain3d_bwd": ((_meta(2, 4, 6, 8, 16), _meta(5, 5, 5, 1, 16), _meta(16),
+                        _meta(7, 7, 7, 1, 16), _meta(16), _meta(2, 4, 6, 8, 16)), 11501568),
+    "conv3d_wgrad": ((_meta(2, 4, 6, 8, 16), _meta(2, 4, 6, 8, 24), 3), 7962624),
+}
+
+
+@pytest.mark.parametrize("fn", kernels.WRAPPERS, ids=WRAPPER_IDS)
+def test_kernel_ops_are_the_counts_of_before(fn):
+    args, ops = OPS[fn.__name__]
+    assert kernel_ops(fn.__name__, args) == ops
+
+
+@pytest.mark.parametrize("fn", kernels.WRAPPERS, ids=WRAPPER_IDS)
+def test_plain_versions_replace_every_wrapper(fn):
+    """Inside `grad_floor.plain_versions()` no wrapper of the table is
+    reachable through `kernels`, the dense convs' weight gradient
+    (`conv3d_wgrad`, which `ops.convs` calls) included; after it, each is
+    back."""
+    with plain_versions():
+        assert getattr(kernels, fn.__name__) is not fn
+    assert getattr(kernels, fn.__name__) is fn

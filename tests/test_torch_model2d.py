@@ -70,8 +70,8 @@ def check_against_jax(carried, config):
         got = tm(torch.from_numpy(x)).numpy()
     assert_close(got, ref, 1e-4)
     assert (got.argmax(-1) == ref.argmax(-1)).all()
-    assert {"deform_dw_conv2d": len(deform_calls), "dw_chain2d": len(chain_calls)} \
-        == LAUNCHES_PER_FORWARD[config]
+    calls = {"deform_dw_conv2d": len(deform_calls), "dw_chain2d": len(chain_calls)}
+    assert {n: c for n, c in calls.items() if c} == LAUNCHES_PER_FORWARD[config]
 
 
 def check_round_trip(carried, deformable):
