@@ -12,7 +12,8 @@ transformer block of every encoder stage and up-block, from the registry
 `remat=True` recomputes each transformer block of the encoder stages and
 the up-blocks in the backward pass instead of keeping its activations
 (`torch.utils.checkpoint`, the JAX package's `nn.remat`), whenever
-gradients are on; inference is unaffected.
+gradients are on; inference is unaffected. The forward draws no random
+numbers, so the recompute keeps no RNG state (`preserve_rng_state=False`).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ NUM_HEADS = 4
 def _run_blocks(blocks: nn.Sequential, x, remat: bool):
     for block in blocks:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(block, x, use_reentrant=False)
+            x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
         else:
             x = block(x)
     return x

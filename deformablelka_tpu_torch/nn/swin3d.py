@@ -240,7 +240,9 @@ class SwinStage(nn.Module):
             mask = shift_mask(dims, ws, shift, x.device) if any(shift) else None
             for blk in self.blocks:
                 if self.remat and torch.is_grad_enabled():
-                    x = checkpoint(blk, x, mask, use_reentrant=False)
+                    # no RNG state to keep: the forward draws no random numbers
+                    x = checkpoint(blk, x, mask, use_reentrant=False,
+                                   preserve_rng_state=False)
                 else:
                     x = blk(x, mask)
             return self.downsample(x)

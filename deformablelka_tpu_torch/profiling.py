@@ -19,6 +19,17 @@ current stream. A span never synchronises: read the events
 stores at exit what every hand kernel's `.launches` added while it was
 open, and what the program's counters (`count`) gained.
 
+Spans inside a CUDA graph. While the training step captures its graphs
+(`graph_spans`), a span opened by the code captured is a `GraphSpan`,
+traced or not: its two timing events are recorded as nodes of the graph
+(`external=True`), so that each replay records them again, and no host
+range is opened. Each replay under a recording phase span files a
+`SpanRecord` of every such span (`replayed`), in the unit and under the
+parents the eager step would give it, with the graph's events. The
+events hold the last replay's times: read after the profiled stretch,
+as any span's, every record of one graph span reads the stretch's last
+replay.
+
 | span | opened by |
 |---|---|
 | `dlka.step` (unit) > `.forward`, `.loss`, `.backward`, `.clip`, `.update` | `training/train_step.make_train_step`'s step |
@@ -28,6 +39,7 @@ open, and what the program's counters (`count`) gained.
 | counter | counted by |
 |---|---|
 | `dlka.swin.windows`: windows attended | `nn/swin3d.SwinBlock3D` |
+| `dlka.step.graphed`: steps served by replaying the step's CUDA graphs | `training/train_step.StepGraphs` |
 """
 
 from __future__ import annotations
@@ -48,6 +60,8 @@ _records: deque = deque(maxlen=SPAN_LIMIT)
 _open: list = []              # the recording spans open now, innermost last
 _units = 0                    # unit spans opened since `reset_spans`
 _counts: defaultdict = defaultdict(int)   # the program's counters (`count`)
+_captured = None              # the `GraphSpan`s of the graph being captured (`graph_spans`)
+_graph_open: list = []        # the `GraphSpan`s open now, innermost last
 
 
 class SpanRecord:
@@ -98,13 +112,69 @@ class SpanRecord:
         return False
 
 
+class GraphSpan:
+    """A span opened while a CUDA graph is captured (`graph_spans`): two
+    timing events recorded as nodes of the graph, its name, args and the
+    graph span it lies in (`parent`, None at the graph's top)."""
+
+    __slots__ = ("name", "args", "parent", "start", "end")
+
+    def __init__(self, name: str, args: dict):
+        self.name, self.args, self.parent = name, args, None
+        self.start = torch.cuda.Event(enable_timing=True, external=True)
+        self.end = torch.cuda.Event(enable_timing=True, external=True)
+
+    def __enter__(self):
+        self.parent = _graph_open[-1] if _graph_open else None
+        self.start.record()
+        _captured.append(self)
+        _graph_open.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.end.record()
+        _graph_open.pop()
+        return False
+
+
 def span(name: str, unit: bool = False, **args):
     """A context manager marking `name` (a unit span if `unit`): a
-    recording span while a `torch.profiler` session records, else the
-    shared no-op `_OFF`."""
+    `GraphSpan` while a graph is captured, a recording span while a
+    `torch.profiler` session records, else the shared no-op `_OFF`."""
+    if _captured is not None:
+        return GraphSpan(name, args)
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return SpanRecord(name, unit, args)
+
+
+@contextlib.contextmanager
+def graph_spans():
+    """Inside, spans are `GraphSpan`s (the code runs under a CUDA graph's
+    capture): yields the list they are filed in, in the order they
+    opened."""
+    global _captured
+    outer, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = outer
+
+
+def replayed(captured: list) -> None:
+    """Files a `SpanRecord` of each of a replayed graph's spans
+    (`captured`, from `graph_spans`) with the graph's events, its top
+    spans under the innermost recording span, which gives them their
+    unit; nothing where none is open (no profiler records)."""
+    if not _open:
+        return
+    top, made = _open[-1], {}
+    for g in captured:
+        rec = SpanRecord(g.name, False, g.args)
+        rec.parent = made[id(g.parent)] if g.parent is not None else top
+        rec.unit, rec.start, rec.end = top.unit, g.start, g.end
+        made[id(g)] = rec
+        _records.append(rec)
 
 
 def count(name: str, n: int = 1) -> None:

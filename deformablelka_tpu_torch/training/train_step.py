@@ -40,6 +40,16 @@ of the global loss's gradient that flows through its own voxels; one
 global gradient on every rank. The clip sees the same norm everywhere,
 and the parameters stay bitwise equal across the ranks.
 
+On the card, the single-rank step runs as CUDA graphs (`StepGraphs`):
+the first call on a key (the shapes and dtypes of image and label, each
+optimizer group's lr, momentum and weight decay) runs eagerly, which
+makes SGD's momentum and warms cuDNN, cuBLAS and the hand kernels; the
+second captures the phases as one graph each in one memory pool and
+replays them; later calls copy their batch into the graphs' inputs and
+replay. The graphs launch the same kernels in the same order as the
+eager step, so the host no longer sets the pace. The data-parallel step
+and the CPU step stay eager.
+
 `make_ranger` is the JAX package's Ranger (RAdam and Lookahead); no
 trainer uses it.
 """
@@ -53,11 +63,14 @@ import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
 
+from deformablelka_tpu_torch import profiling
+from deformablelka_tpu_torch.ops import kernels
 from deformablelka_tpu_torch.profiling import span
 from deformablelka_tpu_torch.training.losses import (dc_and_ce_loss, deep_supervision_loss,
                                                      one_hot, softmax_helper)
 
 CLIP_NORM = 12.0
+GRAPHED = "dlka.step.graphed"   # the counter of steps served by replay
 
 
 def make_sgd(params, lr: float, momentum: float = 0.99,
@@ -140,41 +153,131 @@ def sum_gradients(params, group=None) -> None:
         i += p.numel()
 
 
+class StepGraphs:
+    """The single-rank step on the card as CUDA graphs, one a phase
+    (forward, loss, backward with remat's recompute, clip, update) in one
+    memory pool, replayed in that order, each inside its span.
+
+    A call on a new key runs `eager` on the capture stream and drops the
+    graphs of the old key; the next call on that key captures and
+    replays; later calls replay. Replays read the batch from the graphs'
+    own input buffers, keep the gradients in the pool (set to None once,
+    before the capture), and return fresh copies of the loss and the
+    gradient norm. A replay runs no Python of the model, so it adds back
+    the hand kernels' `.launches` and the counters (`profiling.count`)
+    that the capture counted, files the spans the capture saw
+    (`profiling.replayed`), and counts `dlka.step.graphed`."""
+
+    def __init__(self, model, optimizer, params):
+        self.model, self.optimizer, self.params = model, optimizer, params
+        self.key = self.graphs = None
+        self.stream = torch.cuda.Stream()
+
+    def __call__(self, image, label, eager):
+        key = (image.device, image.shape, image.dtype, label.shape, label.dtype,
+               tuple((g["lr"], g["momentum"], g["weight_decay"])
+                     for g in self.optimizer.param_groups))
+        if key != self.key:
+            self.key = self.graphs = None
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                out = eager(image, label)
+            torch.cuda.current_stream().wait_stream(self.stream)
+            self.key = key
+            return out
+        if self.graphs is None:
+            self._capture(image, label)
+        else:
+            for k, n in self.launches.items():
+                kernels.HAND_KERNELS[k].wrapper.launches += n
+            for k, n in self.counted.items():
+                profiling.count(k, n)
+        self.image.copy_(image)
+        self.label.copy_(label)
+        for name, graph, spans in self.graphs:
+            with span(name):
+                graph.replay()
+                profiling.replayed(spans)
+        profiling.count(GRAPHED)
+        return {"loss": self.loss.clone(), "grad_norm": self.grad_norm.clone()}
+
+    def _capture(self, image, label):
+        self.optimizer.zero_grad(set_to_none=True)
+        self.image, self.label = image.clone(), label.clone()
+        launches, counted = kernels.launch_counts(), profiling.counts()
+        pool, graphs = torch.cuda.graph_pool_handle(), []
+
+        def capture(name, fn):
+            graph = torch.cuda.CUDAGraph()
+            with profiling.graph_spans() as spans:
+                with torch.cuda.graph(graph, pool=pool, stream=self.stream):
+                    out = fn()
+            graphs.append((name, graph, spans))
+            return out
+
+        out = capture("dlka.step.forward", lambda: self.model(self.image))
+        loss = capture("dlka.step.loss", lambda: model_loss(out, self.label))
+        del out
+        capture("dlka.step.backward", loss.backward)
+        self.loss = loss.detach()
+        self.grad_norm = capture("dlka.step.clip", lambda: clip_grad_norm(self.params))
+        capture("dlka.step.update", self.optimizer.step)
+        self.launches = _gained(launches, kernels.launch_counts())
+        self.counted = _gained(counted, profiling.counts())
+        self.graphs = graphs
+
+
+def _gained(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.SGD, mesh=None,
                     axis: str = "data"):
-    """Returns step(image, label) -> {"loss", "grad_norm"}, device scalars;
-    the step updates the model's parameters in place. With `mesh`, image
-    and label are this rank's part of the global batch along `axis`, and
-    the loss, the gradient and the update are the global batch's (the
-    module docstring). The step opens the span `dlka.step` and its
-    phases `.forward`, `.loss`, `.backward` (with the mesh's gradient
-    sum), `.clip` and `.update` (`profiling.span`)."""
+    """Returns step(image, label) -> {"loss", "grad_norm"}, device scalars
+    of their own on every call; the step updates the model's parameters
+    in place. With `mesh`, image and label are this rank's part of the
+    global batch along `axis`, and the loss, the gradient and the update
+    are the global batch's (the module docstring). Without, on the card,
+    the step replays CUDA graphs from its second call on a key
+    (`StepGraphs`). The step opens the span `dlka.step` and its phases
+    `.forward`, `.loss`, `.backward` (with the mesh's gradient sum),
+    `.clip` and `.update` (`profiling.span`)."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     group = None if mesh is None else mesh.group(axis)
     loss_fn = None if group is None else functools.partial(global_dc_and_ce_loss, group=group)
     calls = itertools.count()
+    graphs = None
+    profiling.count(GRAPHED, 0)
+
+    def eager(image, label):
+        optimizer.zero_grad()
+        if group is None:
+            loss = share = loss_of(model, image, label)
+        else:
+            with span("dlka.step.forward"):
+                out = model(image)
+            with span("dlka.step.loss"):
+                share = model_loss(out, label, loss_fn)
+                loss = share.detach().clone()
+                dist.all_reduce(loss, group=group)
+        with span("dlka.step.backward"):
+            share.backward()
+            if group is not None:
+                sum_gradients(params, group)
+        with span("dlka.step.clip"):
+            grad_norm = clip_grad_norm(params)
+        with span("dlka.step.update"):
+            optimizer.step()
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     def step(image, label):
+        nonlocal graphs
         with span("dlka.step", unit=True, step=next(calls)):
-            optimizer.zero_grad()
-            if group is None:
-                loss = share = loss_of(model, image, label)
-            else:
-                with span("dlka.step.forward"):
-                    out = model(image)
-                with span("dlka.step.loss"):
-                    share = model_loss(out, label, loss_fn)
-                    loss = share.detach().clone()
-                    dist.all_reduce(loss, group=group)
-            with span("dlka.step.backward"):
-                share.backward()
-                if group is not None:
-                    sum_gradients(params, group)
-            with span("dlka.step.clip"):
-                grad_norm = clip_grad_norm(params)
-            with span("dlka.step.update"):
-                optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+            if group is not None or not image.is_cuda:
+                return eager(image, label)
+            if graphs is None:
+                graphs = StepGraphs(model, optimizer, params)
+            return graphs(image, label, eager)
 
     return step
 
