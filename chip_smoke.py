@@ -169,10 +169,11 @@ nvcc. Imports nothing of JAX. Phases, one line each (or a few):
    computes this backward, so no library time);
 20. the 2D flagship's training step (`Trainer2D`, `trainer2d_path.py`) at
    224², batch 24, 9 classes, from the CLI's seed, on one synthetic batch:
-   3 steps (s/step, the median of steps 2-3; peak device memory; finite
-   losses; exactly 12 deform forwards and 12 deform backwards per step,
-   none of the others) and the backward kernel's device time in a fourth;
-   the backward kernel's 12 calls of a fifth step captured and timed alone
+   3 steps (the third replays the step's CUDA graphs; s/step, the median
+   of steps 2-3; peak device memory; finite losses; exactly 12 deform
+   forwards and 12 deform backwards per step, none of the others) and the
+   backward kernel's device time in a fourth; the backward kernel's 12
+   calls of a fresh trainer's first (eager) step captured and timed alone
    (CUDA events), with their offsets' statistics;
    then step 1 from the same weights through the plain versions: the loss
    within 1e-5 relative, each parameter tensor's update and the whole
@@ -1940,11 +1941,12 @@ def _train_steps_2d(batch, config, steps=3):
     return times, losses, per_step, trainer, torch.cuda.max_memory_allocated()
 
 
-def _bwd_2d_on_step_inputs(trainer, batch) -> float:
+def _bwd_2d_on_step_inputs(batch) -> float:
     """The 2D backward kernel on one training step's own inputs: each of the
-    step's 12 calls captured, then timed alone (CUDA events, 10 calls),
-    beside its offsets' statistics and whether it took 16-byte accesses.
-    Returns the sum over the calls, ms."""
+    12 calls of a fresh trainer's first step (an eager one: a replayed
+    step runs no Python) captured, then timed alone (CUDA events, 10
+    calls), beside its offsets' statistics and whether it took 16-byte
+    accesses. Returns the sum over the calls, ms."""
     real = kernels.deform_dw_conv2d_bwd
     captured = []
 
@@ -1952,8 +1954,11 @@ def _bwd_2d_on_step_inputs(trainer, batch) -> float:
         captured.append(tuple(t.detach().clone() for t in (x, offset, w, g)) + (dil,))
         return real(x, offset, w, g, dil)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = trainer2d_path.step_trainer(tmp, "dlka")
     with mock.patch.object(kernels, "deform_dw_conv2d_bwd", capture):
         trainer.train_step(batch)
+    del trainer
     total = 0.0
     for x, off, w, g, dil in captured:
         ms = timed_ms(lambda: real(x, off, w, g, dil), 10)
@@ -1976,16 +1981,16 @@ def phase_2d_train_step():
     times, losses, per_step, trainer, peak = _train_steps_2d(batch, "dlka")
     bwd_device_ms = device_profile(lambda: trainer.train_step(batch))["by_class"][
         "deform_dw_conv2d_bwd (hand kernel)"]
-    bwd_inputs_ms = _bwd_2d_on_step_inputs(trainer, batch)
     del trainer
     torch.cuda.empty_cache()
+    bwd_inputs_ms = _bwd_2d_on_step_inputs(batch)
     s_step = float(np.median(times[1:]))
     print(f"phase 20 2D flagship Trainer2D step B={trainer2d_path.BATCH} "
           f"{trainer2d_path.IMG}^2, {trainer2d_path.NUM_CLASSES} classes: {s_step:.4f} s/step "
           f"(median of steps 2-3; steps {_seconds(times)} s), peak device memory "
           f"{peak / 2**30:.3f} GiB; losses {[round(l, 6) for l in losses]}; launches per "
           f"step {per_step[0]}; deform_dw_conv2d_bwd {bwd_device_ms:.3f} device-ms per step "
-          f"(a fourth step under torch.profiler), {bwd_inputs_ms:.3f} ms on a fifth step's "
+          f"(a fourth step under torch.profiler), {bwd_inputs_ms:.3f} ms on a first step's "
           "inputs, each call timed alone", flush=True)
     if any(c != trainer2d_path.LAUNCHES_PER_STEP["dlka"] for c in per_step):
         fail(f"2D training step launches {per_step}, expected "

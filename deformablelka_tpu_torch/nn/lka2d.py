@@ -13,7 +13,9 @@ upstream's torch attribute names and layouts:
 
 Each `DeformConv` is one call of `ops.kernels.deform_dw_conv2d` and each
 LKA chain one call of `ops.kernels.dw_chain2d`: the hand kernels on a
-CUDA tensor, their plain versions on a CPU tensor. Modules hold their
+CUDA tensor, their plain versions on a CPU tensor. The deformable gate
+(the two deform convs, the 1×1 and the product) opens the span
+`dlka.lka2d` (args: size, channels; `profiling.span`). Modules hold their
 weights in torch's layout and hand the kernels the JAX layout.
 """
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from deformablelka_tpu_torch import profiling
 from deformablelka_tpu_torch.nn.layers import Conv2d, DropPath, _uniform_, gelu
 from deformablelka_tpu_torch.nn.norms import LayerNorm
 from deformablelka_tpu_torch.ops import kernels
@@ -75,7 +78,8 @@ class deformable_LKA(nn.Module):
         self.conv1 = Conv2d(dim, dim, 1)
 
     def forward(self, x):
-        return x * self.conv1(self.conv_spatial(self.conv0(x)))
+        with profiling.span("dlka.lka2d", size=tuple(x.shape[1:3]), channels=x.shape[-1]):
+            return x * self.conv1(self.conv_spatial(self.conv0(x)))
 
 
 class AttentionModule(nn.Module):

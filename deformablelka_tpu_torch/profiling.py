@@ -35,10 +35,13 @@ replay.
 | `dlka.step` (unit) > `.forward`, `.loss`, `.backward`, `.clip`, `.update` | `training/train_step.make_train_step`'s step |
 | `dlka.window` (unit) > `.upload`, `.tile` (> `.flip`, `.forward`, `.tta`, `.blend`), `.normalize`, `.argmax`, `.fetch` | `inference/sliding_window.SlidingWindowInference` |
 | `dlka.swin.stage` > `dlka.swin.attention` (the latter also under a block's recompute) | `nn/swin3d.py` |
+| `dlka.maxvit.attention`: a block's or grid's partition, attention and reverse | `models/maxvit.PartitionAttentionCl` |
+| `dlka.lka2d`: the deformable LKA gate (two deform convs, the 1×1, the product) | `nn/lka2d.deformable_LKA` |
 
 | counter | counted by |
 |---|---|
 | `dlka.swin.windows`: windows attended | `nn/swin3d.SwinBlock3D` |
+| `dlka.maxvit.windows`: windows attended | `models/maxvit.PartitionAttentionCl` |
 | `dlka.step.graphed`: steps served by replaying the step's CUDA graphs | `training/train_step.StepGraphs` |
 """
 

@@ -14,13 +14,15 @@ sgd(lr, momentum, nesterov=True))` step for step:
    and p ← p − lr · (g + μ · t): `torch.optim.SGD(momentum=μ,
    nesterov=True, weight_decay=wd)` does exactly this.
 
-The trainers always clip at 12 with Nesterov on; momentum and weight
-decay vary between them. A parameter that the loss does not reach gets a
-zero gradient, as under `jax.grad`, so weight decay and momentum still
-move it. The model's forward is already the training forward: the JAX
-trainers build the model with `deterministic=True`, so dropout is the
-identity and batch norm uses its running statistics
-(`nn/transformer3d.py`).
+The 3D trainers clip at 12 with Nesterov on; momentum and weight decay
+vary between them. The step takes another recipe through its arguments:
+the 2D trainer (`training/trainer2d.Trainer2D`) passes its loss
+(0.4·CE + 0.6·Dice), no clip, and plain momentum 0.9 with weight decay
+1e-4. A parameter that the loss does not reach gets a zero gradient, as
+under `jax.grad`, so weight decay and momentum still move it. The
+model's forward is already the training forward: the JAX trainers build
+the model with `deterministic=True`, so dropout is the identity and
+batch norm uses its running statistics (`nn/transformer3d.py`).
 
 With `mesh=`, `make_train_step` is the data-parallel step: each rank of
 the "data" axis holds its contiguous part of the global batch
@@ -42,13 +44,18 @@ and the parameters stay bitwise equal across the ranks.
 
 On the card, the single-rank step runs as CUDA graphs (`StepGraphs`):
 the first call on a key (the shapes and dtypes of image and label, each
-optimizer group's lr, momentum and weight decay) runs eagerly, which
-makes SGD's momentum and warms cuDNN, cuBLAS and the hand kernels; the
-second captures the phases as one graph each in one memory pool and
-replays them; later calls copy their batch into the graphs' inputs and
-replay. The graphs launch the same kernels in the same order as the
-eager step, so the host no longer sets the pace. The data-parallel step
-and the CPU step stay eager.
+optimizer group's momentum, dampening, weight decay, Nesterov and
+maximize, and the clip) runs eagerly, which makes SGD's momentum and
+warms cuDNN, cuBLAS and the hand kernels; the second captures the phases
+as one graph each in one memory pool and replays them; later calls copy
+their batch into the graphs' inputs and replay. The graphs launch the
+same kernels in the same order as the eager step, so the host no longer
+sets the pace. The learning rate is no part of the key: the captured
+update (`sgd_update`) reads each group's LR from a 0-d float32 tensor on
+the card, which the step fills from `group["lr"]` before a replay, so a
+schedule that changes the LR at every update (the 2D trainer's poly LR)
+captures once. The data-parallel step and the CPU step stay eager, on
+`torch.optim.SGD.step`.
 
 `make_ranger` is the JAX package's Ranger (RAdam and Lookahead); no
 trainer uses it.
@@ -82,19 +89,45 @@ def make_sgd(params, lr: float, momentum: float = 0.99,
                            weight_decay=weight_decay)
 
 
-@torch.no_grad()
-def clip_grad_norm(params) -> torch.Tensor:
-    """Clips the gradients in place to a global norm of 12, as optax does,
-    and returns their norm before the clip (a device scalar: no host
-    sync). A missing gradient becomes zeros."""
-    grads = []
+def zero_missing_grads(params) -> None:
+    """A parameter that the loss does not reach gets a zero gradient, as
+    under `jax.grad`."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-        grads.append(p.grad)
+
+
+@torch.no_grad()
+def clip_grad_norm(params, max_norm: float = CLIP_NORM) -> torch.Tensor:
+    """Clips the gradients in place to a global norm of `max_norm`, as
+    optax does, and returns their norm before the clip (a device scalar:
+    no host sync). A missing gradient becomes zeros."""
+    zero_missing_grads(params)
+    grads = [p.grad for p in params]
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    torch._foreach_mul_(grads, (CLIP_NORM / norm).clamp(max=1.0))
+    torch._foreach_mul_(grads, (max_norm / norm).clamp(max=1.0))
     return norm
+
+
+@torch.no_grad()
+def sgd_update(optimizer: torch.optim.SGD, lrs) -> None:
+    """`optimizer.step()` at each group's LR read from the card: `lrs[i]`
+    is a 0-d float32 tensor on the parameters' device holding group i's
+    LR. The arithmetic is SGD's own, weight decay, the momentum buffer
+    and the optional Nesterov term, by `torch._fused_sgd_` (the kernel of
+    `SGD(fused=True)`, which takes a tensor LR), on the momentum buffers
+    in `optimizer.state` that an earlier `optimizer.step()` made: one
+    pass over the parameters per group, no host sync. Every parameter
+    needs a gradient (`zero_missing_grads`). It rounds once per quantity
+    where the foreach step rounds each intermediate, so the two agree to
+    a few float32 ulps of each parameter per step."""
+    for group, lr in zip(optimizer.param_groups, lrs):
+        params = group["params"]
+        bufs = [optimizer.state[p]["momentum_buffer"] for p in params] if group["momentum"] else []
+        torch._fused_sgd_(params, [p.grad for p in params], bufs,
+                          weight_decay=group["weight_decay"], momentum=group["momentum"], lr=lr,
+                          dampening=group["dampening"], nesterov=group["nesterov"],
+                          maximize=group["maximize"], is_first_step=False)
 
 
 def model_loss(out, label, loss_fn=dc_and_ce_loss):
@@ -155,28 +188,33 @@ def sum_gradients(params, group=None) -> None:
 
 class StepGraphs:
     """The single-rank step on the card as CUDA graphs, one a phase
-    (forward, loss, backward with remat's recompute, clip, update) in one
-    memory pool, replayed in that order, each inside its span.
+    (forward, loss, backward with remat's recompute, the clip where there
+    is one, update) in one memory pool, replayed in that order, each
+    inside its span.
 
     A call on a new key runs `eager` on the capture stream and drops the
     graphs of the old key; the next call on that key captures and
     replays; later calls replay. Replays read the batch from the graphs'
-    own input buffers, keep the gradients in the pool (set to None once,
+    own input buffers and each group's LR from a 0-d tensor on the card
+    (`sgd_update`), filled from `group["lr"]` before a replay where it
+    changed; they keep the gradients in the pool (set to None once,
     before the capture), and return fresh copies of the loss and the
     gradient norm. A replay runs no Python of the model, so it adds back
     the hand kernels' `.launches` and the counters (`profiling.count`)
     that the capture counted, files the spans the capture saw
     (`profiling.replayed`), and counts `dlka.step.graphed`."""
 
-    def __init__(self, model, optimizer, params):
+    def __init__(self, model, optimizer, params, loss_fn=dc_and_ce_loss, clip=CLIP_NORM):
         self.model, self.optimizer, self.params = model, optimizer, params
+        self.loss_fn, self.clip = loss_fn, clip
         self.key = self.graphs = None
         self.stream = torch.cuda.Stream()
 
     def __call__(self, image, label, eager):
+        groups = self.optimizer.param_groups
         key = (image.device, image.shape, image.dtype, label.shape, label.dtype,
-               tuple((g["lr"], g["momentum"], g["weight_decay"])
-                     for g in self.optimizer.param_groups))
+               tuple((g["momentum"], g["dampening"], g["weight_decay"], g["nesterov"],
+                      g["maximize"]) for g in groups), self.clip)
         if key != self.key:
             self.key = self.graphs = None
             self.stream.wait_stream(torch.cuda.current_stream())
@@ -192,6 +230,10 @@ class StepGraphs:
                 kernels.HAND_KERNELS[k].wrapper.launches += n
             for k, n in self.counted.items():
                 profiling.count(k, n)
+        for i, g in enumerate(groups):
+            if g["lr"] != self.lr_values[i]:
+                self.lrs[i].fill_(g["lr"])
+                self.lr_values[i] = g["lr"]
         self.image.copy_(image)
         self.label.copy_(label)
         for name, graph, spans in self.graphs:
@@ -199,11 +241,15 @@ class StepGraphs:
                 graph.replay()
                 profiling.replayed(spans)
         profiling.count(GRAPHED)
-        return {"loss": self.loss.clone(), "grad_norm": self.grad_norm.clone()}
+        return {"loss": self.loss.clone(),
+                "grad_norm": None if self.grad_norm is None else self.grad_norm.clone()}
 
     def _capture(self, image, label):
         self.optimizer.zero_grad(set_to_none=True)
         self.image, self.label = image.clone(), label.clone()
+        self.lrs = [torch.zeros((), dtype=torch.float32, device=image.device)
+                    for _ in self.optimizer.param_groups]
+        self.lr_values = [None] * len(self.lrs)
         launches, counted = kernels.launch_counts(), profiling.counts()
         pool, graphs = torch.cuda.graph_pool_handle(), []
 
@@ -215,13 +261,20 @@ class StepGraphs:
             graphs.append((name, graph, spans))
             return out
 
+        def update():
+            zero_missing_grads(self.params)
+            sgd_update(self.optimizer, self.lrs)
+
         out = capture("dlka.step.forward", lambda: self.model(self.image))
-        loss = capture("dlka.step.loss", lambda: model_loss(out, self.label))
+        loss = capture("dlka.step.loss", lambda: model_loss(out, self.label, self.loss_fn))
         del out
         capture("dlka.step.backward", loss.backward)
         self.loss = loss.detach()
-        self.grad_norm = capture("dlka.step.clip", lambda: clip_grad_norm(self.params))
-        capture("dlka.step.update", self.optimizer.step)
+        self.grad_norm = None
+        if self.clip is not None:
+            self.grad_norm = capture("dlka.step.clip",
+                                     lambda: clip_grad_norm(self.params, self.clip))
+        capture("dlka.step.update", update)
         self.launches = _gained(launches, kernels.launch_counts())
         self.counted = _gained(counted, profiling.counts())
         self.graphs = graphs
@@ -232,41 +285,54 @@ def _gained(before: dict, after: dict) -> dict:
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.SGD, mesh=None,
-                    axis: str = "data"):
+                    axis: str = "data", *, loss_fn=dc_and_ce_loss,
+                    clip: float | None = CLIP_NORM):
     """Returns step(image, label) -> {"loss", "grad_norm"}, device scalars
-    of their own on every call; the step updates the model's parameters
-    in place. With `mesh`, image and label are this rank's part of the
-    global batch along `axis`, and the loss, the gradient and the update
-    are the global batch's (the module docstring). Without, on the card,
-    the step replays CUDA graphs from its second call on a key
-    (`StepGraphs`). The step opens the span `dlka.step` and its phases
-    `.forward`, `.loss`, `.backward` (with the mesh's gradient sum),
-    `.clip` and `.update` (`profiling.span`)."""
+    of their own on every call (the norm before the clip; None with
+    `clip=None`); the step updates the model's parameters in place.
+    `loss_fn(logits, label)` is the loss of one scale (`model_loss`);
+    `clip` the global norm the gradient is clipped to, or None for no
+    clip. A parameter that the loss does not reach gets a zero gradient
+    either way. With `mesh`, image and label are this rank's part of the
+    global batch along `axis`, and the loss (the Synapse loss only), the
+    gradient and the update are the global batch's (the module
+    docstring). Without, on the card, the step replays CUDA graphs from
+    its second call on a key (`StepGraphs`). The step opens the span
+    `dlka.step` and its phases `.forward`, `.loss`, `.backward` (with the
+    mesh's gradient sum), `.clip` (where it clips) and `.update`
+    (`profiling.span`)."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     group = None if mesh is None else mesh.group(axis)
-    loss_fn = None if group is None else functools.partial(global_dc_and_ce_loss, group=group)
+    if group is not None and loss_fn is not dc_and_ce_loss:
+        raise ValueError("the data-parallel step takes the Synapse loss only")
+    share_fn = loss_fn if group is None else functools.partial(global_dc_and_ce_loss, group=group)
     calls = itertools.count()
     graphs = None
     profiling.count(GRAPHED, 0)
 
     def eager(image, label):
         optimizer.zero_grad()
-        if group is None:
+        if group is None and loss_fn is dc_and_ce_loss:
             loss = share = loss_of(model, image, label)
         else:
             with span("dlka.step.forward"):
                 out = model(image)
             with span("dlka.step.loss"):
-                share = model_loss(out, label, loss_fn)
-                loss = share.detach().clone()
-                dist.all_reduce(loss, group=group)
+                share = model_loss(out, label, share_fn)
+                loss = share
+                if group is not None:
+                    loss = share.detach().clone()
+                    dist.all_reduce(loss, group=group)
         with span("dlka.step.backward"):
             share.backward()
             if group is not None:
                 sum_gradients(params, group)
-        with span("dlka.step.clip"):
-            grad_norm = clip_grad_norm(params)
+        grad_norm = None
+        if clip is not None:
+            with span("dlka.step.clip"):
+                grad_norm = clip_grad_norm(params, clip)
         with span("dlka.step.update"):
+            zero_missing_grads(params)
             optimizer.step()
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
@@ -276,7 +342,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.SGD, mesh=Non
             if group is not None or not image.is_cuda:
                 return eager(image, label)
             if graphs is None:
-                graphs = StepGraphs(model, optimizer, params)
+                graphs = StepGraphs(model, optimizer, params, loss_fn, clip)
             return graphs(image, label, eager)
 
     return step

@@ -22,6 +22,14 @@ the momentum buffer holding no LR. So:
 A parameter the loss does not reach gets a zero gradient, so weight decay
 still moves it, as under optax.
 
+`Trainer2D` steps through the port's training step
+(`training/train_step.make_train_step` with its loss and no clip): on the
+card its second step captures CUDA graphs and later steps replay them,
+the poly LR read from the card, so a new LR each update captures once.
+Its host batches go up through pinned buffers with `non_blocking=True`
+(`_to_device`), and `run_training` fetches an epoch's losses once, at
+the epoch's end. `TrainerSkin` keeps an eager step of its own.
+
 The trainers take a model already initialised and on its device (the
 card, or the CPU where the caller built it there) and keep it in eval
 mode: the JAX 2D models are built with `deterministic=True`, and the JAX
@@ -46,6 +54,7 @@ import torch
 
 from deformablelka_tpu_torch.training.checkpoint import CheckpointManager
 from deformablelka_tpu_torch.training.losses import dice_ce_2d_loss
+from deformablelka_tpu_torch.training.train_step import make_train_step, zero_missing_grads
 
 log = logging.getLogger("deformablelka_tpu_torch.trainer2d")
 
@@ -58,18 +67,33 @@ def bce_with_logits(logits, labels):
     return (l.clamp(min=0) - l * y + torch.log1p(torch.exp(-l.abs()))).mean()
 
 
-def _zero_missing_grads(params) -> None:
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-
-
 def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
+_STAGING: dict = {}   # (shape, dtype) -> two [pinned buffer, event of its last upload]
+
+
 def _to_device(array, device, dtype=torch.float32) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(array)).to(device=device, dtype=dtype)
+    """A host array on `device` as `dtype`. To the card it goes through
+    one of two pinned buffers of its shape and dtype, taken in turn, and
+    `non_blocking=True`: the host waits only for the upload that last
+    read the buffer (its event), two uploads of that shape back."""
+    host = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type != "cuda":
+        return host.to(device=device, dtype=dtype)
+    ring = _STAGING.setdefault((host.shape, dtype), [])
+    if len(ring) < 2:
+        ring.append([torch.empty(host.shape, dtype=dtype, pin_memory=True), None])
+    slot = ring.pop(0)
+    ring.append(slot)
+    if slot[1] is not None:
+        slot[1].synchronize()
+    slot[0].copy_(host)
+    out = slot[0].to(device, non_blocking=True)
+    slot[1] = torch.cuda.Event()
+    slot[1].record()
+    return out
 
 
 class Trainer2D:
@@ -119,29 +143,27 @@ class Trainer2D:
         return self.base_lr * (1.0 - frac) ** 0.9
 
     def initialize(self, example_batch=None):
-        """A fresh optimizer (no momentum yet) and the count at 0. The
-        batch is the JAX trainer's init input; the port's model is built
-        already."""
+        """A fresh optimizer (no momentum yet), the training step on it
+        (the trainer's loss, no clip) and the count at 0. The batch is the
+        JAX trainer's init input; the port's model is built already."""
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = torch.optim.SGD(self.params, lr=self.lr(0),
                                          momentum=self.momentum,
                                          weight_decay=self.weight_decay)
+        self._step_fn = make_train_step(self.model, self.optimizer, loss_fn=self.loss_fn,
+                                        clip=None)
         self.step = 0
 
     def train_step(self, batch) -> torch.Tensor:
         """One update on a host batch (image (B, H, W, Cin) float32, label
-        (B, H, W) int); returns the loss, a device scalar."""
+        (B, H, W) int) at the poly LR of the updates made; returns the
+        loss, a device scalar."""
         image = _to_device(batch["image"], self.device)
         label = _to_device(batch["label"], self.device, torch.long)
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr(self.step)
-        self.optimizer.zero_grad()
-        loss = self.loss_fn(self.model(image), label)
-        loss.backward()
-        _zero_missing_grads(self.params)
-        self.optimizer.step()
+        loss = self._step_fn(image, label)["loss"]
         self.step += 1
-        loss = loss.detach()
         if self._tb is not None:
             self._log_tb(float(loss), image, label)
         return loss
@@ -159,10 +181,9 @@ class Trainer2D:
             self.initialize(first)
         while self.epoch < self.max_epochs:
             t0 = time.time()
-            ep_losses = []
-            for _ in range(self.iterations_per_epoch):
-                ep_losses.append(float(self.train_step(self.train_gen.next())))
-            self.losses.append(float(np.mean(ep_losses)))
+            ep_losses = [self.train_step(self.train_gen.next())
+                         for _ in range(self.iterations_per_epoch)]
+            self.losses.append(float(np.mean(torch.stack(ep_losses).tolist())))
             self.epoch_times.append(time.time() - t0)
             self.epoch += 1
             log.info("epoch %d loss %.4f (%.1fs)", self.epoch,
@@ -263,7 +284,7 @@ class TrainerSkin:
         loss = bce_with_logits(self.model(_to_device(image, self.device)),
                                _to_device(mask, self.device)[..., 0])
         loss.backward()
-        _zero_missing_grads(self.params)
+        zero_missing_grads(self.params)
         self.optimizer.step()
         return loss.detach()
 
